@@ -21,7 +21,7 @@ MMVP_ROOT=${MMVP_ROOT:-$WHATSUP_ROOT}
 run() {
   local ds=$1 root=$2
   echo "== $SCORER / $MODEL / $ds"
-  python -m clip_embeds_tpu.cli.eval \
+  python -m clip_embeds.cli.eval \
       --scorer "$SCORER" --model "$MODEL" \
       ${CKPT:+--pretrained "$CKPT"} \
       --dataset "$ds" --root-dir "$root"

@@ -7,17 +7,17 @@ import os
 import numpy as np
 from PIL import Image
 
-from clip_embeds_tpu.evals.benchmarks import (
+from clip_embeds.evals.benchmarks import (
     SugarCREPE,
     Winoground,
     get_benchmark,
     run_benchmark,
 )
-from clip_embeds_tpu.evals.zero_shot import (
+from clip_embeds.evals.zero_shot import (
     build_zero_shot_classifier,
     zero_shot_eval,
 )
-from clip_embeds_tpu.scores.score import Score
+from clip_embeds.scores.score import Score
 
 
 def _img(tmp_path, name, seed=0):
@@ -128,7 +128,7 @@ def test_zero_shot_classifier():
 def test_naturalbench_and_seetrue(tmp_path):
     import json as _json
 
-    from clip_embeds_tpu.evals.benchmarks import (
+    from clip_embeds.evals.benchmarks import (
         NaturalBenchRetrieval,
         SeeTrue,
     )
@@ -176,7 +176,7 @@ def test_naturalbench_and_seetrue(tmp_path):
 def test_genai_bench(tmp_path):
     import json as _json
 
-    from clip_embeds_tpu.evals.benchmarks import GenAIBench
+    from clip_embeds.evals.benchmarks import GenAIBench
 
     os.makedirs(tmp_path / "images")
     meta = {}
@@ -216,7 +216,7 @@ def _img_name(tmp_path, name):
 def test_pickapic(tmp_path):
     import json as _json
 
-    from clip_embeds_tpu.evals.benchmarks import Pickapic
+    from clip_embeds.evals.benchmarks import Pickapic
 
     n = max(Pickapic.SELECTED_IDXS) + 1
     img = _img_name(tmp_path, "i.png")
@@ -236,7 +236,7 @@ def test_pickapic(tmp_path):
 
 
 def test_flickr30k_p(tmp_path):
-    from clip_embeds_tpu.evals.benchmarks import Flickr30KNeg
+    from clip_embeds.evals.benchmarks import Flickr30KNeg
 
     img = _img_name(tmp_path, "a.png")
     lines = ["images\tneg_images\tcaptions\tneg_captions"]
@@ -258,7 +258,7 @@ def test_flickr30k_p(tmp_path):
 def test_tifa_and_flickr8k_cf(tmp_path):
     import json as _json
 
-    from clip_embeds_tpu.evals.benchmarks import TIFA160, Flickr8KCF
+    from clip_embeds.evals.benchmarks import TIFA160, Flickr8KCF
 
     (tmp_path / "images").mkdir()
     img = _img_name(tmp_path / "images", "x.png")
@@ -292,7 +292,7 @@ def test_tifa_and_flickr8k_cf(tmp_path):
 def test_frame_averaged_and_ranking(tmp_path):
     import json as _json
 
-    from clip_embeds_tpu.evals.benchmarks import (
+    from clip_embeds.evals.benchmarks import (
         GenAIBenchRanking,
         T2VScore,
     )
@@ -325,7 +325,7 @@ def test_frame_averaged_and_ranking(tmp_path):
 
 
 def test_imagenet_zero_shot_metadata():
-    from clip_embeds_tpu.evals.zero_shot import (
+    from clip_embeds.evals.zero_shot import (
         build_zero_shot_classifier,
         load_imagenet_metadata,
     )
@@ -355,8 +355,8 @@ def test_t2v_eval_cli_end_to_end(tmp_path):
     """cli/t2v_eval: CLIPScore over winoground + sugarcrepe fixtures."""
     import json as _json
 
-    from clip_embeds_tpu.cli.t2v_eval import main
-    from clip_embeds_tpu.evals.benchmarks import BENCHMARKS, get_benchmark
+    from clip_embeds.cli.t2v_eval import main
+    from clip_embeds.evals.benchmarks import BENCHMARKS, get_benchmark
 
     # every dataset class is CLI-addressable
     assert len(BENCHMARKS) == 15
@@ -400,7 +400,7 @@ def test_download_benchmark_hooks(tmp_path, monkeypatch):
     injected fetcher, and get_benchmark(download=True) self-provisions."""
     import zipfile
 
-    from clip_embeds_tpu.evals.benchmarks import (
+    from clip_embeds.evals.benchmarks import (
         DOWNLOAD_SOURCES,
         download_benchmark,
     )

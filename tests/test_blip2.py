@@ -5,9 +5,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from clip_embeds_tpu.core.config import VisionConfig
-from clip_embeds_tpu.core.torch_convert import convert_blip2_state_dict
-from clip_embeds_tpu.models.blip2 import Blip2Config, Blip2ITM, QFormerConfig
+from clip_embeds.core.config import VisionConfig
+from clip_embeds.core.torch_convert import convert_blip2_state_dict
+from clip_embeds.models.blip2 import Blip2Config, Blip2ITM, QFormerConfig
 
 pytestmark = pytest.mark.slow  # torch-oracle parity family (see pyproject)
 

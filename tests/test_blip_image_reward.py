@@ -13,8 +13,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from clip_embeds_tpu.core.config import VisionConfig
-from clip_embeds_tpu.models.blip import (
+from clip_embeds.core.config import VisionConfig
+from clip_embeds.models.blip import (
     BlipConfig,
     BlipTextConfig,
     ImageReward,

@@ -7,11 +7,11 @@ from PIL import Image
 import jax
 import jax.numpy as jnp
 
-from clip_embeds_tpu.core.config import VisionConfig
-from clip_embeds_tpu.models.clip_t5 import CLIPT5, CLIPT5Config
-from clip_embeds_tpu.models.llava import IMAGE_TOKEN_INDEX
-from clip_embeds_tpu.models.t5 import T5Config
-from clip_embeds_tpu.scores.vqa_score import T5VQAScorer, t5_tokenizer_image_token
+from clip_embeds.core.config import VisionConfig
+from clip_embeds.models.clip_t5 import CLIPT5, CLIPT5Config
+from clip_embeds.models.llava import IMAGE_TOKEN_INDEX
+from clip_embeds.models.t5 import T5Config
+from clip_embeds.scores.vqa_score import T5VQAScorer, t5_tokenizer_image_token
 
 pytestmark = pytest.mark.slow  # torch-oracle parity family (see pyproject)
 
@@ -92,7 +92,7 @@ def test_t5_vqa_feature_reuse_exactness():
 def test_t5_vqa_score_api_routes_groups():
     """Score(m x n) over the T5 factory goes through the grouped path and
     matches the per-pair result."""
-    from clip_embeds_tpu.scores.score import T5VQAScore
+    from clip_embeds.scores.score import T5VQAScore
 
     model, params = tiny()
     score = T5VQAScore(model, params, _toy_tok, group_size=2,
@@ -113,7 +113,7 @@ def test_t5_vqa_score_api_routes_groups():
 def test_clip_t5_int8_trunk():
     """W8A8 T5 trunk (quantize_clip_t5_trunk + quant_t5='dynamic'): runs,
     produces valid scores, and stays close to the fp path on a tiny model."""
-    from clip_embeds_tpu.models.quant import quantize_clip_t5_trunk
+    from clip_embeds.models.quant import quantize_clip_t5_trunk
 
     model, params = tiny()
     qparams = quantize_clip_t5_trunk(jax.device_get(params))
@@ -180,7 +180,7 @@ def test_clip_t5_checkpoint_conversion(tmp_path):
     # HF T5 state dicts omit shared for tied embeds sometimes; ensure present
     sd.setdefault("shared.weight", t5.shared.weight)
 
-    from clip_embeds_tpu.core.torch_convert import convert_clip_t5_state_dict
+    from clip_embeds.core.torch_convert import convert_clip_t5_state_dict
 
     params = convert_clip_t5_state_dict(sd)
     assert set(params) == {"vision_tower", "multi_modal_projector", "t5"}

@@ -9,10 +9,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from clip_embeds_tpu.core.config import TextConfig, VisionConfig
-from clip_embeds_tpu.core.torch_convert import convert_coca_state_dict
-from clip_embeds_tpu.losses.coca import coca_loss
-from clip_embeds_tpu.models.coca import CoCa, CoCaConfig, MultimodalConfig
+from clip_embeds.core.config import TextConfig, VisionConfig
+from clip_embeds.core.torch_convert import convert_coca_state_dict
+from clip_embeds.losses.coca import coca_loss
+from clip_embeds.models.coca import CoCa, CoCaConfig, MultimodalConfig
 
 pytestmark = pytest.mark.slow  # torch-oracle parity family (see pyproject)
 

@@ -7,7 +7,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from clip_embeds_tpu.models.convnext import (
+from clip_embeds.models.convnext import (
     ConvNeXtConfig,
     ConvNeXtTower,
     convert_convnext_tower,
@@ -124,8 +124,8 @@ def test_convnext_tower_parity(proj):
 
 
 def test_registry_resolves_convnext_natively():
-    from clip_embeds_tpu.core.config import get_model_config
-    from clip_embeds_tpu.core.openclip_registry import classify_model
+    from clip_embeds.core.config import get_model_config
+    from clip_embeds.core.openclip_registry import classify_model
 
     assert classify_model("convnext_base_w")[0] == "clip"
     cfg = get_model_config("convnext_base_w")
@@ -141,8 +141,8 @@ def test_registry_resolves_convnext_natively():
 
 
 def test_tiny_convnext_clip_forward():
-    from clip_embeds_tpu.core.config import CLIPConfig, TextConfig, VisionConfig
-    from clip_embeds_tpu.models.clip import CLIP
+    from clip_embeds.core.config import CLIPConfig, TextConfig, VisionConfig
+    from clip_embeds.models.clip import CLIP
 
     cfg = CLIPConfig(
         embed_dim=24,

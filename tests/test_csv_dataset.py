@@ -10,9 +10,9 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from clip_embeds_tpu.data.csv_dataset import CsvPairDataset, csv_batches
-from clip_embeds_tpu.image.preprocess import preprocess_clip
-from clip_embeds_tpu.text.tokenizer import get_tokenizer
+from clip_embeds.data.csv_dataset import CsvPairDataset, csv_batches
+from clip_embeds.image.preprocess import preprocess_clip
+from clip_embeds.text.tokenizer import get_tokenizer
 
 
 def _write_corpus(tmp_path, n=10, sep="\t", img_key="filepath",
@@ -78,7 +78,7 @@ def test_csv_batches_epoch_shuffle_deterministic(tmp_path):
 
 @pytest.mark.slow
 def test_train_cli_csv_and_auto(tmp_path):
-    from clip_embeds_tpu.cli.train import main
+    from clip_embeds.cli.train import main
 
     path = _write_corpus(tmp_path, n=16)
     for ds_type in ("csv", "auto"):
@@ -92,7 +92,7 @@ def test_train_cli_csv_and_auto(tmp_path):
 
 @pytest.mark.slow
 def test_train_cli_webdataset(tmp_path):
-    from clip_embeds_tpu.cli.train import main
+    from clip_embeds.cli.train import main
 
     rng = np.random.default_rng(1)
     tar_path = tmp_path / "shard-000.tar"
@@ -121,8 +121,8 @@ def test_build_data_varies_order_across_epochs(tmp_path):
     previously all reused the epoch-0 order)."""
     import argparse
 
-    from clip_embeds_tpu.cli.train import build_data
-    from clip_embeds_tpu.core.factory import create_model
+    from clip_embeds.cli.train import build_data
+    from clip_embeds.core.factory import create_model
 
     path = _write_corpus(tmp_path, n=8)
     model, _ = create_model("test-tiny")

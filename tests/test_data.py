@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from clip_embeds_tpu.data.hard_negatives import (
+from clip_embeds.data.hard_negatives import (
     HardNegativeAugmenter,
     leftright_augmenter,
 )
@@ -57,7 +57,7 @@ def _make_datamix(tmp_path, n=10):
 
 
 def test_datamix_batches(tmp_path):
-    from clip_embeds_tpu.data.datamix import DataMixDataset, datamix_batches
+    from clip_embeds.data.datamix import DataMixDataset, datamix_batches
 
     ann, img_dir = _make_datamix(tmp_path)
     ds = DataMixDataset(
@@ -83,7 +83,7 @@ def test_datamix_batches(tmp_path):
 
 
 def test_checkpoint_roundtrip(tmp_path):
-    from clip_embeds_tpu.core import checkpoint as ckpt
+    from clip_embeds.core import checkpoint as ckpt
 
     state = {
         "params": {"w": np.arange(6, dtype=np.float32).reshape(2, 3)},
@@ -109,7 +109,7 @@ def test_checkpoint_roundtrip(tmp_path):
 
 
 def test_checkpoint_prune(tmp_path):
-    from clip_embeds_tpu.core import checkpoint as ckpt
+    from clip_embeds.core import checkpoint as ckpt
 
     state = {"w": np.zeros(2, np.float32)}
     for step in range(5):
@@ -120,7 +120,7 @@ def test_checkpoint_prune(tmp_path):
 
 
 def test_remote_sync(tmp_path):
-    from clip_embeds_tpu.core.remote_sync import RemoteSync, sync_once
+    from clip_embeds.core.remote_sync import RemoteSync, sync_once
 
     src = tmp_path / "src"
     dst = tmp_path / "dst"
@@ -143,14 +143,13 @@ def test_remote_sync(tmp_path):
 
 def test_regex_chunker_divergence_vs_gold_fixture():
     """Quantify the regex noun-chunker's divergence from spacy-convention
-    chunks (VERDICT round 1: the PACL training-data distribution depends on
-    it). Gold annotations live in tests/fixtures/noun_chunks_gold.json; when
+    chunks (the PACL training-data distribution depends on it). Gold annotations live in tests/fixtures/noun_chunks_gold.json; when
     spacy + en_core_web_sm are installed the fixture is cross-checked
     against the real pipeline too."""
     import json
     import os
 
-    from clip_embeds_tpu.data.pacl_data import regex_noun_phrases
+    from clip_embeds.data.pacl_data import regex_noun_phrases
 
     path = os.path.join(os.path.dirname(__file__), "fixtures",
                         "noun_chunks_gold.json")

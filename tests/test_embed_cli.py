@@ -7,7 +7,7 @@ import os
 import numpy as np
 from PIL import Image
 
-from clip_embeds_tpu.cli.embed import list_images, main
+from clip_embeds.cli.embed import list_images, main
 
 
 def _mk_images(root, n=10):
@@ -91,7 +91,7 @@ def test_embed_cli_data_parallel_matches_single_device(tmp_path):
 
 def test_embed_cli_texts(tmp_path):
     """--input-texts route: captions -> normalized text embeddings."""
-    from clip_embeds_tpu.cli.embed import main
+    from clip_embeds.cli.embed import main
 
     txt = tmp_path / "caps.txt"
     txt.write_text("a photo of a cat\na photo of a dog\nan aerial view\n")
@@ -108,7 +108,7 @@ def test_embed_cli_texts(tmp_path):
 
 
 def test_embed_cli_rejects_ambiguous_inputs(tmp_path):
-    from clip_embeds_tpu.cli.embed import main
+    from clip_embeds.cli.embed import main
 
     assert main(["--model", "test-tiny",
                  "--output", str(tmp_path / "x.npy")]) == 1

@@ -9,8 +9,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from clip_embeds_tpu.core.config import VisionConfig
-from clip_embeds_tpu.models.eva import (
+from clip_embeds.core.config import VisionConfig
+from clip_embeds.models.eva import (
     EVAVisionTower,
     convert_eva_trunk_state_dict,
     eva_giant_config,
@@ -124,13 +124,13 @@ def test_eva_parity(torch_trunk):
 
 
 def test_eva_in_clip_factory():
-    from clip_embeds_tpu.core.factory import create_model
+    from clip_embeds.core.factory import create_model
 
     cfg = eva_giant_config()
     assert cfg.width == 1408 and cfg.layers == 40
     # tiny stand-in through the same CLIP wiring
-    from clip_embeds_tpu.core.config import CLIPConfig, TextConfig
-    from clip_embeds_tpu.models.clip import CLIP
+    from clip_embeds.core.config import CLIPConfig, TextConfig
+    from clip_embeds.models.clip import CLIP
 
     clip_cfg = CLIPConfig(
         embed_dim=48,
@@ -277,7 +277,7 @@ def eva02_tiny_cfg() -> VisionConfig:
 def test_eva02_parity(torch_eva02):
     import torch
 
-    from clip_embeds_tpu.models.eva import (
+    from clip_embeds.models.eva import (
         EVA02VisionTower,
         convert_eva02_trunk_state_dict,
     )
@@ -301,7 +301,7 @@ def test_eva02_post_norm_variant():
     """EVA02-E layout: fused qkv [q;0;v] bias, plain GELU MLP, post-norm."""
     torch = pytest.importorskip("torch")
 
-    from clip_embeds_tpu.models.eva import (
+    from clip_embeds.models.eva import (
         EVA02VisionTower,
         convert_eva02_trunk_state_dict,
     )
@@ -396,8 +396,8 @@ def test_eva02_post_norm_variant():
 
 def test_eva02_registry_native():
     """EVA02-* names classify as native clip and build through the factory."""
-    from clip_embeds_tpu.core.openclip_registry import classify_model
-    from clip_embeds_tpu.models.eva import eva02_vision_config
+    from clip_embeds.core.openclip_registry import classify_model
+    from clip_embeds.models.eva import eva02_vision_config
 
     for name in ("EVA02-B-16", "EVA02-L-14", "EVA02-L-14-336",
                  "EVA02-E-14", "EVA02-E-14-plus"):
@@ -408,7 +408,7 @@ def test_eva02_registry_native():
     assert cfg.width == 1024 and cfg.layers == 24 and cfg.eva_rope
     assert int(cfg.width * cfg.mlp_ratio) == 2730
 
-    from clip_embeds_tpu.core.config import get_model_config
+    from clip_embeds.core.config import get_model_config
 
     full = get_model_config("EVA02-L-14-336")
     assert full.vision.tower == "eva02" and full.embed_dim == 768
@@ -420,12 +420,12 @@ def test_eva02_custom_text_checkpoint_conversion(torch_eva02, tmp_path):
     load_torch_checkpoint into the CLIP assembly."""
     import torch
 
-    from clip_embeds_tpu.core.config import CLIPConfig, TextConfig
-    from clip_embeds_tpu.core.factory import load_params
-    from clip_embeds_tpu.models.clip import CLIP
+    from clip_embeds.core.config import CLIPConfig, TextConfig
+    from clip_embeds.core.factory import load_params
+    from clip_embeds.models.clip import CLIP
 
     # reference text tower (plain CLIP text half) under the 'text.' prefix
-    from clip_embeds_tpu.cli.parity import _load_refoc
+    from clip_embeds.cli.parity import _load_refoc
 
     ref_model_module, _ = _load_refoc()
 

@@ -8,8 +8,8 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from clip_embeds_tpu.evals.mmvp import eval_mmvp
-from clip_embeds_tpu.evals.whatsup import eval_coco_vg, eval_whatsup
+from clip_embeds.evals.mmvp import eval_mmvp
+from clip_embeds.evals.whatsup import eval_coco_vg, eval_whatsup
 
 PREPS_A = ["left_of", "right_of", "on", "under"]  # What'sUp A-style
 KEYS = ["left", "right", "on", "under"]
@@ -125,7 +125,7 @@ def test_coco_vg_driver(tmp_path):
 def _make_mmvp(tmp_path, n_pairs=135):
     """MMVP-VLM-format fixture: the real 9 categories x 15 pairs structure
     (the reference bucketing hard-codes it, eval_clip.py:254-260,339-341)."""
-    from clip_embeds_tpu.evals.mmvp import MMVP_VLM_CATEGORIES as cats
+    from clip_embeds.evals.mmvp import MMVP_VLM_CATEGORIES as cats
     img_dir = tmp_path / "MLLM_VLM_Images"
     rows = [["qid", "type", "statement"]]
     rng = np.random.default_rng(2)
@@ -188,8 +188,8 @@ def test_mmvp_driver_half(tmp_path):
 
 def test_clip_scorer_end_to_end(tmp_path):
     """Full pipeline with the tiny model: driver + CLIPScorer on fixtures."""
-    from clip_embeds_tpu.core.factory import create_model
-    from clip_embeds_tpu.scores.scorers import CLIPScorer
+    from clip_embeds.core.factory import create_model
+    from clip_embeds.scores.scorers import CLIPScorer
 
     dataset = _make_whatsup_dataset(tmp_path, n_pairs=2)
     model, params = create_model("test-tiny", attn_impl="reference")
@@ -203,9 +203,9 @@ def test_pacl_scorer_end_to_end(tmp_path):
     import jax
     import jax.numpy as jnp
 
-    from clip_embeds_tpu.core.factory import create_model
-    from clip_embeds_tpu.models.heads import PACLHead
-    from clip_embeds_tpu.scores.scorers import PACLScorer
+    from clip_embeds.core.factory import create_model
+    from clip_embeds.models.heads import PACLHead
+    from clip_embeds.scores.scorers import PACLScorer
 
     dataset = _make_whatsup_dataset(tmp_path, n_pairs=1)
     model, params = create_model("test-tiny", attn_impl="reference")
@@ -221,7 +221,7 @@ def test_pacl_scorer_end_to_end(tmp_path):
 def test_flickr_retrieval(tmp_path):
     import json as _json
 
-    from clip_embeds_tpu.evals.flickr import (
+    from clip_embeds.evals.flickr import (
         evaluate_retrieval,
         load_flickr_annotations,
     )

@@ -17,7 +17,7 @@ import jax.numpy as jnp
 
 pytestmark = pytest.mark.slow  # torch-oracle parity family (see pyproject)
 
-from clip_embeds_tpu.models.fastvit import (  # noqa: E402
+from clip_embeds.models.fastvit import (  # noqa: E402
     FastViTConfig,
     FastViTTower,
     convert_fastvit_state_dict,
@@ -287,8 +287,8 @@ def test_fastvit_parity(torch_fastvit):
 
 
 def test_mobileclip_s_registry_native():
-    from clip_embeds_tpu.core.config import get_model_config
-    from clip_embeds_tpu.core.openclip_registry import classify_model
+    from clip_embeds.core.config import get_model_config
+    from clip_embeds.core.openclip_registry import classify_model
 
     for name, dims, layers in (
             ("MobileCLIP-S1", (64, 128, 256, 512), (4, 12, 20, 4)),
@@ -310,13 +310,13 @@ def test_fastvit_full_model_convert(torch_fastvit):
     assembles the custom_text ('text.'-prefixed) text tower."""
     import torch
 
-    from clip_embeds_tpu.core.config import (
+    from clip_embeds.core.config import (
         CLIPConfig,
         TextConfig,
         VisionConfig,
     )
-    from clip_embeds_tpu.core.torch_convert import convert_clip_state_dict
-    from clip_embeds_tpu.models.clip import CLIP
+    from clip_embeds.core.torch_convert import convert_clip_state_dict
+    from clip_embeds.models.clip import CLIP
 
     torch.manual_seed(1)
     d, layers, ctx, vocab = 32, 2, 12, 64

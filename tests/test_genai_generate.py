@@ -22,7 +22,7 @@ def prompts_json(tmp_path):
 
 
 def test_generate_synthetic_layout(prompts_json, tmp_path):
-    from clip_embeds_tpu.cli.genai_generate import main
+    from clip_embeds.cli.genai_generate import main
 
     out = main([
         "--prompts", prompts_json, "--gen-model", "toy-model",
@@ -34,7 +34,7 @@ def test_generate_synthetic_layout(prompts_json, tmp_path):
 
 
 def test_generate_deterministic(prompts_json, tmp_path):
-    from clip_embeds_tpu.cli.genai_generate import main
+    from clip_embeds.cli.genai_generate import main
 
     a = main(["--prompts", prompts_json, "--gen-model", "m",
               "--output-dir", str(tmp_path / "a")])
@@ -48,8 +48,8 @@ def test_generate_deterministic(prompts_json, tmp_path):
 def test_generate_then_score(prompts_json, tmp_path):
     """Full generate->score loop: shim output feeds the GenAIBench scoring
     dataset (evals/benchmarks.py) like the reference evaluate.py."""
-    from clip_embeds_tpu.cli.genai_generate import main
-    from clip_embeds_tpu.evals.benchmarks import GenAIBench
+    from clip_embeds.cli.genai_generate import main
+    from clip_embeds.evals.benchmarks import GenAIBench
 
     out = main(["--prompts", prompts_json, "--gen-model", "toy",
                 "--output-dir", str(tmp_path / "outputs")])

@@ -6,9 +6,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from clip_embeds_tpu.core.torch_convert import convert_llama_state_dict
-from clip_embeds_tpu.models.generate import greedy_generate
-from clip_embeds_tpu.models.llama import LlamaConfig, LlamaForCausalLM
+from clip_embeds.core.torch_convert import convert_llama_state_dict
+from clip_embeds.models.generate import greedy_generate
+from clip_embeds.models.llama import LlamaConfig, LlamaForCausalLM
 
 pytestmark = pytest.mark.slow  # torch-oracle parity family (see pyproject)
 
@@ -45,7 +45,7 @@ def test_cached_forward_matches_full(pair):
     full = model.apply({"params": params}, ids)
 
     # chunked: prefill 6 tokens, then 4 single steps
-    from clip_embeds_tpu.models.generate import init_cache
+    from clip_embeds.models.generate import init_cache
 
     cache = init_cache(model, 2)
     embeds = model.apply({"params": params}, ids[:, :6], method="embed")
@@ -91,9 +91,9 @@ def test_greedy_matches_hf(pair):
 
 
 def test_llava_greedy_generate():
-    from clip_embeds_tpu.core.config import VisionConfig
-    from clip_embeds_tpu.models.generate import llava_greedy_generate
-    from clip_embeds_tpu.models.llava import Llava, LlavaConfig
+    from clip_embeds.core.config import VisionConfig
+    from clip_embeds.models.generate import llava_greedy_generate
+    from clip_embeds.models.llava import Llava, LlavaConfig
 
     cfg = LlavaConfig(
         llama=LlamaConfig(
@@ -135,8 +135,8 @@ def test_coca_topk1_generation_matches_reference():
     import torch
 
     from tests.test_coca import ref_coca, _jax_model
-    from clip_embeds_tpu.core.torch_convert import convert_coca_state_dict
-    from clip_embeds_tpu.models.generate import coca_sample_generate
+    from clip_embeds.core.torch_convert import convert_coca_state_dict
+    from clip_embeds.models.generate import coca_sample_generate
 
     ref = ref_coca.__wrapped__()
     model = _jax_model()
@@ -174,8 +174,8 @@ def test_coca_topp_generation_valid():
     """top_p sampling: valid tokens, sot prefix, eos termination, and
     determinism under a fixed key."""
     from tests.test_coca import ref_coca, _jax_model
-    from clip_embeds_tpu.core.torch_convert import convert_coca_state_dict
-    from clip_embeds_tpu.models.generate import coca_sample_generate
+    from clip_embeds.core.torch_convert import convert_coca_state_dict
+    from clip_embeds.models.generate import coca_sample_generate
 
     ref = ref_coca.__wrapped__()
     model = _jax_model()
@@ -207,8 +207,8 @@ def test_coca_beam_generation():
     import torch
 
     from tests.test_coca import ref_coca, _jax_model
-    from clip_embeds_tpu.core.torch_convert import convert_coca_state_dict
-    from clip_embeds_tpu.models.generate import (
+    from clip_embeds.core.torch_convert import convert_coca_state_dict
+    from clip_embeds.models.generate import (
         coca_beam_generate,
         coca_sample_generate,
     )

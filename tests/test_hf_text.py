@@ -6,13 +6,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from clip_embeds_tpu.models.hf_text import (
+from clip_embeds.models.hf_text import (
     BertTextConfig,
     BertTextTower,
     T5TextTower,
     mean_pool,
 )
-from clip_embeds_tpu.models.t5 import T5Config
+from clip_embeds.models.t5 import T5Config
 
 pytestmark = pytest.mark.slow  # torch-oracle parity family (see pyproject)
 
@@ -56,11 +56,11 @@ def test_build_custom_text_clip_registry_archs():
     import jax.numpy as jnp
     import numpy as np
 
-    from clip_embeds_tpu.models.custom_text_clip import (
+    from clip_embeds.models.custom_text_clip import (
         HF_TEXT_SHAPES,
         build_custom_text_clip,
     )
-    from clip_embeds_tpu.core.openclip_registry import (
+    from clip_embeds.core.openclip_registry import (
         classify_model,
         list_openclip_models,
     )
@@ -78,14 +78,14 @@ def test_build_custom_text_clip_registry_archs():
     m = build_custom_text_clip("roberta-ViT-B-32")
     import dataclasses as dc
 
-    from clip_embeds_tpu.core.config import VisionConfig
+    from clip_embeds.core.config import VisionConfig
 
     tiny = dc.replace(
         m.cfg,
         vision=VisionConfig(image_size=32, patch_size=16, width=32, layers=1,
                             head_width=16),
     )
-    from clip_embeds_tpu.models.custom_text_clip import CustomTextCLIP
+    from clip_embeds.models.custom_text_clip import CustomTextCLIP
 
     m = CustomTextCLIP(tiny)
     # tiny vision tower + the real roberta-base text shapes on a 4-token batch
@@ -110,7 +110,7 @@ def test_m2m100_nllb_encoder_parity():
     from transformers import M2M100Config as HFConfig
     from transformers.models.m2m_100.modeling_m2m_100 import M2M100Encoder
 
-    from clip_embeds_tpu.models.hf_text import (
+    from clip_embeds.models.hf_text import (
         M2M100Config,
         M2M100TextTower,
         convert_m2m100_encoder_state_dict,
@@ -162,13 +162,13 @@ def test_nllb_siglip_hybrid_assembly():
     import jax.numpy as jnp
     import numpy as np
 
-    from clip_embeds_tpu.core.openclip_registry import classify_model
-    from clip_embeds_tpu.models.custom_text_clip import (
+    from clip_embeds.core.openclip_registry import classify_model
+    from clip_embeds.models.custom_text_clip import (
         CustomTextCLIP,
         CustomTextCLIPConfig,
     )
-    from clip_embeds_tpu.core.config import VisionConfig
-    from clip_embeds_tpu.models.siglip import SiglipVisionConfig
+    from clip_embeds.core.config import VisionConfig
+    from clip_embeds.models.siglip import SiglipVisionConfig
 
     backend, detail = classify_model("nllb-clip-base-siglip")
     assert backend == "hf-text" and "siglip" in detail
@@ -176,7 +176,7 @@ def test_nllb_siglip_hybrid_assembly():
     assert backend == "hf-text"
 
     # tiny hybrid: same wiring, scaled-down shapes
-    from clip_embeds_tpu.models.custom_text_clip import HF_TEXT_SHAPES
+    from clip_embeds.models.custom_text_clip import HF_TEXT_SHAPES
 
     HF_TEXT_SHAPES["tiny/nllb"] = dict(
         kind="m2m100", vocab_size=128, d_model=32, num_layers=2,

@@ -5,11 +5,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from clip_embeds_tpu.core.config import VisionConfig
-from clip_embeds_tpu.core.torch_convert import convert_instructblip_state_dict
-from clip_embeds_tpu.models.blip2 import QFormerConfig
-from clip_embeds_tpu.models.instructblip import InstructBlipConfig, InstructBlipT5
-from clip_embeds_tpu.models.t5 import T5Config
+from clip_embeds.core.config import VisionConfig
+from clip_embeds.core.torch_convert import convert_instructblip_state_dict
+from clip_embeds.models.blip2 import QFormerConfig
+from clip_embeds.models.instructblip import InstructBlipConfig, InstructBlipT5
+from clip_embeds.models.t5 import T5Config
 
 pytestmark = pytest.mark.slow  # torch-oracle parity family (see pyproject)
 
@@ -116,7 +116,7 @@ def test_generative_logit_parity(hf_model):
 def test_vqa_scorer_pipeline(hf_model):
     """End-to-end scorer on toy tokenizers: scores finite, in (0, 1], and
     match a direct exp(-mean CE) over the same logits."""
-    from clip_embeds_tpu.scores.vqa_score import InstructBlipVQAScorer
+    from clip_embeds.scores.vqa_score import InstructBlipVQAScorer
 
     model = _jax_model()
     params = convert_instructblip_state_dict(
@@ -149,8 +149,8 @@ def test_vision_cache_and_int8(hf_model):
     """forward_image_texts (EVA tower cached per image) matches the per-pair
     forward exactly; the W8A8 T5 trunk (quant_t5='dynamic') runs and stays
     close on the tiny model."""
-    from clip_embeds_tpu.models.quant import quantize_clip_t5_trunk
-    from clip_embeds_tpu.scores.vqa_score import InstructBlipVQAScorer
+    from clip_embeds.models.quant import quantize_clip_t5_trunk
+    from clip_embeds.scores.vqa_score import InstructBlipVQAScorer
 
     model = _jax_model()
     params = convert_instructblip_state_dict(

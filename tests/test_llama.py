@@ -5,8 +5,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from clip_embeds_tpu.core.torch_convert import convert_llama_state_dict
-from clip_embeds_tpu.models.llama import (
+from clip_embeds.core.torch_convert import convert_llama_state_dict
+from clip_embeds.models.llama import (
     LlamaConfig,
     LlamaForCausalLM,
 )
@@ -107,8 +107,8 @@ def test_llama_tensor_parallel_sharding():
     import numpy as np
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    from clip_embeds_tpu.models.llama import LlamaConfig, LlamaForCausalLM
-    from clip_embeds_tpu.parallel.sharding_rules import (
+    from clip_embeds.models.llama import LlamaConfig, LlamaForCausalLM
+    from clip_embeds.parallel.sharding_rules import (
         clip_param_specs,
         shard_params,
     )

@@ -6,10 +6,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from clip_embeds_tpu.core.torch_convert import convert_llava_state_dict
-from clip_embeds_tpu.core.config import VisionConfig
-from clip_embeds_tpu.models.llama import LlamaConfig
-from clip_embeds_tpu.models.llava import (
+from clip_embeds.core.torch_convert import convert_llava_state_dict
+from clip_embeds.core.config import VisionConfig
+from clip_embeds.models.llama import LlamaConfig
+from clip_embeds.models.llava import (
     IMAGE_TOKEN_INDEX,
     Llava,
     LlavaConfig,
@@ -114,7 +114,7 @@ def test_vqa_scorer_pipeline(hf_llava):
     """VQAScore end-to-end with a toy word tokenizer on the tiny model."""
     from PIL import Image
 
-    from clip_embeds_tpu.scores.vqa_score import VQAScorer
+    from clip_embeds.scores.vqa_score import VQAScorer
 
     cfg = tiny_cfg()
     model = Llava(cfg, attn_impl="reference")

@@ -5,10 +5,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from clip_embeds_tpu.core.config import VisionConfig
-from clip_embeds_tpu.models.llama import LlamaConfig
-from clip_embeds_tpu.models.llava import IMAGE_TOKEN_INDEX
-from clip_embeds_tpu.models.llava_next import (
+from clip_embeds.core.config import VisionConfig
+from clip_embeds.models.llama import LlamaConfig
+from clip_embeds.models.llava import IMAGE_TOKEN_INDEX
+from clip_embeds.models.llava_next import (
     LlavaNext,
     LlavaNextConfig,
     anyres_grid_shape,
@@ -90,7 +90,7 @@ def hf_model():
 
 
 def _jax_params(hf):
-    from clip_embeds_tpu.core.torch_convert import convert_llava_next_state_dict
+    from clip_embeds.core.torch_convert import convert_llava_next_state_dict
 
     return convert_llava_next_state_dict(
         {k: v for k, v in hf.state_dict().items()}
@@ -213,11 +213,11 @@ def test_embed_last_token_pools_real_last_token(hf_model):
 
 
 def test_process_anyres_image_shapes():
-    from clip_embeds_tpu.core.constants import (
+    from clip_embeds.core.constants import (
         OPENAI_DATASET_MEAN,
         OPENAI_DATASET_STD,
     )
-    from clip_embeds_tpu.models.llava_next import process_anyres_image
+    from clip_embeds.models.llava_next import process_anyres_image
 
     rng = np.random.default_rng(5)
     img = rng.integers(0, 255, (20, 50, 3)).astype(np.uint8)

@@ -7,8 +7,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from clip_embeds_tpu.core.config import VisionConfig
-from clip_embeds_tpu.models.llm2clip import (
+from clip_embeds.core.config import VisionConfig
+from clip_embeds.models.llm2clip import (
     LLM2CLIP,
     LLM2CLIPConfig,
     convert_llm2clip_state_dict,

@@ -10,20 +10,20 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from clip_embeds_tpu.losses.clip_loss import (
+from clip_embeds.losses.clip_loss import (
     clip_loss,
     clip_loss_hard_text,
     embedding_contrastive_loss,
     pacl_clip_loss,
     softmax_cross_entropy,
 )
-from clip_embeds_tpu.losses.siglip import siglip_loss, siglip_loss_ring
-from clip_embeds_tpu.losses.sparc import (
+from clip_embeds.losses.siglip import siglip_loss, siglip_loss_ring
+from clip_embeds.losses.sparc import (
     masked_pairwise_contrastive_loss,
     sparc_group_patches,
     sparc_loss,
 )
-from clip_embeds_tpu.parallel.mesh import create_mesh
+from clip_embeds.parallel.mesh import create_mesh
 
 
 def _norm(x):
@@ -262,7 +262,7 @@ def test_distill_clip_loss_matches_reference(feats):
                 + loss_mod.dist_loss(t_im.T, s_img.T)
             ) / 2,
         }
-    from clip_embeds_tpu.losses.clip_loss import distill_clip_loss
+    from clip_embeds.losses.clip_loss import distill_clip_loss
 
     contrastive, distill = distill_clip_loss(
         jnp.asarray(img), jnp.asarray(txt), jnp.asarray(10.0),

@@ -14,7 +14,7 @@ import jax.numpy as jnp
 
 pytestmark = pytest.mark.slow  # torch-oracle parity family (see pyproject)
 
-from clip_embeds_tpu.models.mci_vit import (  # noqa: E402
+from clip_embeds.models.mci_vit import (  # noqa: E402
     MCiViTConfig,
     MCiViTTower,
     convert_mci_vit_state_dict,
@@ -157,8 +157,8 @@ def test_mci_vit_parity(torch_mci_vit):
 
 
 def test_mobileclip_b_registry_native():
-    from clip_embeds_tpu.core.config import get_model_config
-    from clip_embeds_tpu.core.openclip_registry import classify_model
+    from clip_embeds.core.config import get_model_config
+    from clip_embeds.core.openclip_registry import classify_model
 
     backend, detail = classify_model("MobileCLIP-B")
     assert backend == "clip", detail
@@ -175,9 +175,9 @@ def test_mci_vit_full_model_convert(torch_mci_vit):
     assembles the custom_text ('text.'-prefixed) text tower."""
     import torch
 
-    from clip_embeds_tpu.core.config import CLIPConfig, TextConfig, VisionConfig
-    from clip_embeds_tpu.core.torch_convert import convert_clip_state_dict
-    from clip_embeds_tpu.models.clip import CLIP
+    from clip_embeds.core.config import CLIPConfig, TextConfig, VisionConfig
+    from clip_embeds.core.torch_convert import convert_clip_state_dict
+    from clip_embeds.models.clip import CLIP
 
     torch.manual_seed(1)
     d, layers, ctx, vocab = 32, 2, 12, 64

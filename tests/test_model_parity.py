@@ -14,9 +14,9 @@ import pytest
 
 jnp = pytest.importorskip("jax.numpy")
 
-from clip_embeds_tpu.core.config import CLIPConfig, TextConfig, VisionConfig
-from clip_embeds_tpu.core.torch_convert import convert_clip_state_dict
-from clip_embeds_tpu.models.clip import CLIP
+from clip_embeds.core.config import CLIPConfig, TextConfig, VisionConfig
+from clip_embeds.core.torch_convert import convert_clip_state_dict
+from clip_embeds.models.clip import CLIP
 
 
 @pytest.fixture(scope="module")
@@ -138,7 +138,7 @@ def test_output_tokens_shapes():
 def test_sincos_pos_embed_matches_reference():
     import importlib.util
 
-    from clip_embeds_tpu.models.vit import sincos_2d_pos_embed
+    from clip_embeds.models.vit import sincos_2d_pos_embed
 
     spec = importlib.util.spec_from_file_location(
         "_ref_pe", "/root/reference/open_clip/src/open_clip/pos_embed.py"
@@ -154,8 +154,8 @@ def test_sincos_pos_embed_matches_reference():
 def test_scan_layers_matches_unrolled():
     import jax
 
-    from clip_embeds_tpu.core.factory import create_model
-    from clip_embeds_tpu.models.clip import CLIP, stack_clip_params
+    from clip_embeds.core.factory import create_model
+    from clip_embeds.models.clip import CLIP, stack_clip_params
 
     model, params = create_model("test-tiny", attn_impl="reference")
     smodel = CLIP(model.cfg, attn_impl="reference", scan_layers=True)

@@ -6,12 +6,12 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from clip_embeds_tpu.image.preprocess import (
+from clip_embeds.image.preprocess import (
     native_resize_normalize,
     native_resize_normalize_batch,
     preprocess_pacl,
 )
-from clip_embeds_tpu.native.build import load_library
+from clip_embeds.native.build import load_library
 
 
 @pytest.fixture(scope="module")
@@ -68,7 +68,7 @@ def test_upscale(lib):
 
 
 def test_native_preprocess_clip_parity(lib):
-    from clip_embeds_tpu.image.preprocess import (
+    from clip_embeds.image.preprocess import (
         native_preprocess_clip,
         preprocess_clip,
     )
@@ -92,13 +92,13 @@ def test_native_preprocess_clip_parity(lib):
 
 import io
 
-from clip_embeds_tpu.core.constants import OPENAI_DATASET_MEAN, OPENAI_DATASET_STD
-from clip_embeds_tpu.image.loader import (
+from clip_embeds.core.constants import OPENAI_DATASET_MEAN, OPENAI_DATASET_STD
+from clip_embeds.image.loader import (
     PrefetchLoader,
     decode_preprocess_batch,
     native_decode_preprocess,
 )
-from clip_embeds_tpu.image.preprocess import preprocess_clip
+from clip_embeds.image.preprocess import preprocess_clip
 
 
 def _encode(arr: np.ndarray, fmt: str, **kw) -> bytes:
@@ -248,3 +248,33 @@ def test_prefetch_loader_abandoned_iteration_terminates(lib, tmp_path):
     while threading.active_count() > before and _time.time() < deadline:
         _time.sleep(0.05)
     assert threading.active_count() <= before
+
+
+@pytest.mark.parametrize("mode", ["RGB", "L", "P"])
+def test_png_without_optional_codecs(mode, tmp_path, monkeypatch):
+    """Built with zlib alone (a host without libjpeg/libwebp headers), the
+    library decodes 8-bit RGB, gray and palette PNGs bit-exactly and hands
+    JPEG to the PIL fallback."""
+    import ctypes
+
+    from clip_embeds.native import build
+
+    lib_path = str(tmp_path / "libzlib_only.so")
+    build._build(lib_path, optional_codecs=())
+    monkeypatch.setattr(build, "_LIB", build._declare(ctypes.CDLL(lib_path)))
+    rng = np.random.default_rng(11)
+    y, x = np.mgrid[0:75, 0:120]
+    arr = np.stack([(x * (c + 1) + y * (3 - c)) % 256 for c in range(3)],
+                   axis=-1).astype(np.uint8)
+    img = Image.fromarray(arr)
+    if mode == "L":
+        img = img.convert("L")
+    elif mode == "P":
+        img = img.convert("P", palette=Image.ADAPTIVE)
+    png = io.BytesIO()
+    img.save(png, format="PNG", optimize=True)  # adaptive row filters
+    jpeg = _encode(rng.integers(0, 256, (40, 40, 3), dtype=np.uint8), "JPEG")
+    out, ok = native_decode_preprocess([png.getvalue(), jpeg], 64)
+    assert list(ok) == [True, False]
+    np.testing.assert_allclose(out[0], _pil_ref(png.getvalue(), 64),
+                               rtol=0, atol=1e-5)

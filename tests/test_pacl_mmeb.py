@@ -5,13 +5,13 @@ import json
 import numpy as np
 from PIL import Image
 
-from clip_embeds_tpu.data.pacl_data import (
+from clip_embeds.data.pacl_data import (
     CaptionPromptSampler,
     PACLCaptionDataset,
     pacl_batches,
     regex_noun_phrases,
 )
-from clip_embeds_tpu.evals.mmeb import dedup_pairs, evaluate_subset
+from clip_embeds.evals.mmeb import dedup_pairs, evaluate_subset
 
 
 def test_regex_noun_phrases():

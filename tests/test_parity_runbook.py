@@ -1,8 +1,8 @@
 """End-to-end accuracy-parity runbook proof on tiny fixtures.
 
-cli/parity.py runs the ACTUAL reference eval driver (eval_clip.py functions
-AST-extracted and executed with the reference open_clip torch model from
-/root/reference) and the repo's TPU driver on the same checkpoint + dataset,
+cli/parity.py runs the ACTUAL reference eval functions (eval_clip.py,
+AST-extracted and executed with the reference open_clip torch model from the
+reference checkout) and the repo's JAX eval on the same checkpoint + dataset,
 then diffs the accuracy tables. Here both run on a random tiny checkpoint
 over a synthetic What'sUp fixture — with real weights and the real dataset
 the same command fills BASELINE.md's parity column.
@@ -52,8 +52,8 @@ def tiny_checkpoint(tmp_path):
     """Random reference torch test-tiny CLIP saved as a .pt checkpoint."""
     torch = pytest.importorskip("torch")
 
-    from clip_embeds_tpu.cli.parity import _load_refoc
-    from clip_embeds_tpu.core.config import get_model_config
+    from clip_embeds.cli.parity import _load_refoc
+    from clip_embeds.core.config import get_model_config
 
     refoc_model, _ = _load_refoc()
     cfg = get_model_config("test-tiny")
@@ -78,7 +78,7 @@ def tiny_checkpoint(tmp_path):
 
 
 def test_parity_runbook_whatsup(whatsup_fixture, tiny_checkpoint, tmp_path):
-    from clip_embeds_tpu.cli.parity import main
+    from clip_embeds.cli.parity import main
 
     out = tmp_path / "report.json"
     report = main([
@@ -95,7 +95,7 @@ def test_parity_runbook_whatsup(whatsup_fixture, tiny_checkpoint, tmp_path):
 
 
 def test_results_file_parser(tmp_path):
-    from clip_embeds_tpu.cli.parity import parse_results_file
+    from clip_embeds.cli.parity import parse_results_file
 
     path = tmp_path / "r.txt"
     path.write_text(
@@ -147,7 +147,7 @@ def _tiny_pacl_checkpoint(tmp_path, driver: str, seed: int = 0):
     DataParallel 'module.'-prefixed format of train_pacl.py:133."""
     torch = pytest.importorskip("torch")
 
-    from clip_embeds_tpu.cli.parity import _load_ref_pacl_ns
+    from clip_embeds.cli.parity import _load_ref_pacl_ns
 
     ns = _load_ref_pacl_ns("test-pacl-tiny")
     torch.manual_seed(seed)
@@ -164,7 +164,7 @@ def _tiny_pacl_checkpoint(tmp_path, driver: str, seed: int = 0):
 ])
 def test_parity_runbook_pacl_sparc(whatsup_fixture_64, tmp_path, driver,
                                    local):
-    from clip_embeds_tpu.cli.parity import main
+    from clip_embeds.cli.parity import main
 
     ckpt = _tiny_pacl_checkpoint(tmp_path, driver)
     argv = [

@@ -5,8 +5,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from clip_embeds_tpu.models.llama import LlamaConfig
-from clip_embeds_tpu.models.phi3 import Phi3ForCausalLM, convert_phi3_state_dict
+from clip_embeds.models.llama import LlamaConfig
+from clip_embeds.models.phi3 import Phi3ForCausalLM, convert_phi3_state_dict
 
 pytestmark = pytest.mark.slow  # torch-oracle parity family (see pyproject)
 
@@ -57,8 +57,8 @@ def test_qwen2_logits_parity():
     torch.manual_seed(0)
     hf = HFQwen2(hf_cfg).eval()
 
-    from clip_embeds_tpu.core.torch_convert import convert_llama_state_dict
-    from clip_embeds_tpu.models.llama import LlamaForCausalLM
+    from clip_embeds.core.torch_convert import convert_llama_state_dict
+    from clip_embeds.models.llama import LlamaForCausalLM
 
     cfg = LlamaConfig(
         vocab_size=256, hidden_size=64, intermediate_size=128,

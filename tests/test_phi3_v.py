@@ -12,9 +12,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from clip_embeds_tpu.core.config import VisionConfig
-from clip_embeds_tpu.models.llama import LlamaConfig
-from clip_embeds_tpu.models.phi3_v import (
+from clip_embeds.core.config import VisionConfig
+from clip_embeds.models.llama import LlamaConfig
+from clip_embeds.models.phi3_v import (
     Phi3V,
     Phi3VConfig,
     Phi3VImageEmbedding,

@@ -6,9 +6,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from clip_embeds_tpu.core.factory import create_model
-from clip_embeds_tpu.models.clip import CLIP
-from clip_embeds_tpu.models.quant import quantize_dense_tree, quantize_weight
+from clip_embeds.core.factory import create_model
+from clip_embeds.models.clip import CLIP
+from clip_embeds.models.quant import quantize_dense_tree, quantize_weight
 
 
 def test_quantize_weight_roundtrip():
@@ -51,7 +51,7 @@ def test_quantized_params_are_int8():
 
 
 def test_static_calibration_matches_dynamic():
-    from clip_embeds_tpu.models.quant import calibrate_act_scales
+    from clip_embeds.models.quant import calibrate_act_scales
 
     model, params = create_model("test-tiny", attn_impl="reference")
     qdyn = CLIP(model.cfg, attn_impl="reference", quant="dynamic")
@@ -77,7 +77,7 @@ def test_static_calibration_matches_dynamic():
 
 def test_validate_int8_cli(tmp_path):
     """Cross-distribution int8-vs-bf16 validation CLI on the tiny model."""
-    from clip_embeds_tpu.cli.validate_int8 import main
+    from clip_embeds.cli.validate_int8 import main
 
     out = tmp_path / "report.json"
     report = main([
@@ -103,8 +103,8 @@ def test_quantize_tree_on_device_stacked_layout():
     import jax
     import jax.numpy as jnp
 
-    from clip_embeds_tpu.models.llama import stack_llama_params
-    from clip_embeds_tpu.models.quant import (
+    from clip_embeds.models.llama import stack_llama_params
+    from clip_embeds.models.quant import (
         LLAMA_QUANT_LAYER_NAMES,
         quantize_dense_tree,
         quantize_tree_on_device,

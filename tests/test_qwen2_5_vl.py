@@ -7,8 +7,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from clip_embeds_tpu.models.llama import LlamaConfig
-from clip_embeds_tpu.models.qwen2_vl import (
+from clip_embeds.models.llama import LlamaConfig
+from clip_embeds.models.qwen2_vl import (
     Qwen25VisionTower,
     Qwen25VL,
     Qwen25VLConfig,
@@ -68,7 +68,7 @@ def hf_model():
 
 
 def _params(hf):
-    from clip_embeds_tpu.core.torch_convert import (
+    from clip_embeds.core.torch_convert import (
         convert_qwen2_5_vl_state_dict,
     )
 

@@ -6,8 +6,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from clip_embeds_tpu.models.llama import LlamaConfig
-from clip_embeds_tpu.models.qwen2_vl import (
+from clip_embeds.models.llama import LlamaConfig
+from clip_embeds.models.qwen2_vl import (
     Qwen2VL,
     Qwen2VLConfig,
     Qwen2VLVisionConfig,
@@ -62,7 +62,7 @@ def hf_model():
 
 
 def _params(hf):
-    from clip_embeds_tpu.core.torch_convert import convert_qwen2_vl_state_dict
+    from clip_embeds.core.torch_convert import convert_qwen2_vl_state_dict
 
     return convert_qwen2_vl_state_dict(
         {k: v for k, v in hf.state_dict().items()}
@@ -195,7 +195,7 @@ def test_image_to_patches_matches_hf_processor():
     ref, ref_grid = out["pixel_values"], out["image_grid_thw"][0]
 
     # replicate: smart_resize + normalize (HF OPENAI_CLIP stats by default)
-    from clip_embeds_tpu.core.constants import (
+    from clip_embeds.core.constants import (
         OPENAI_DATASET_MEAN,
         OPENAI_DATASET_STD,
     )

@@ -2,8 +2,8 @@
 
 import pytest
 
-from clip_embeds_tpu.core.config import get_model_config
-from clip_embeds_tpu.core.openclip_registry import (
+from clip_embeds.core.config import get_model_config
+from clip_embeds.core.openclip_registry import (
     classify_model,
     get_pretrained_cfg,
     is_pretrained_cfg,
@@ -101,7 +101,7 @@ def test_pretrained_cfg_api():
 def test_every_registry_arch_is_native():
     """Since the fastvit towers landed, all 126 reference model configs
     classify to a native backend — nothing is 'unsupported' anymore."""
-    from clip_embeds_tpu.core.openclip_registry import (
+    from clip_embeds.core.openclip_registry import (
         _registry,
         classify_model,
     )
@@ -120,7 +120,7 @@ def test_download_pretrained_mocked(tmp_path, monkeypatch):
     URL resolution, cache writes, and cache short-circuiting — no network."""
     import urllib.request
 
-    from clip_embeds_tpu.core.openclip_registry import (
+    from clip_embeds.core.openclip_registry import (
         download_pretrained,
         get_pretrained_cfg,
     )
@@ -149,7 +149,7 @@ def test_download_pretrained_mocked(tmp_path, monkeypatch):
 
 
 def test_download_pretrained_hf_hub_only_raises(tmp_path):
-    from clip_embeds_tpu.core.openclip_registry import download_pretrained
+    from clip_embeds.core.openclip_registry import download_pretrained
 
     with pytest.raises(FileNotFoundError, match="hf_hub"):
         download_pretrained({"hf_hub": "org/repo/"}, cache_dir=str(tmp_path))
@@ -158,7 +158,7 @@ def test_download_pretrained_hf_hub_only_raises(tmp_path):
 def test_pretrained_table_entries_resolvable():
     """Every pretrained entry carries a weight source (url or hf_hub) —
     the table integrity the reference's mocked download tests rely on."""
-    from clip_embeds_tpu.core.openclip_registry import (
+    from clip_embeds.core.openclip_registry import (
         get_pretrained_cfg,
         list_pretrained,
     )

@@ -9,8 +9,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from clip_embeds_tpu.core.torch_convert import convert_modified_resnet_state_dict
-from clip_embeds_tpu.models.resnet import ModifiedResNet
+from clip_embeds.core.torch_convert import convert_modified_resnet_state_dict
+from clip_embeds.models.resnet import ModifiedResNet
 
 pytestmark = pytest.mark.slow  # torch-oracle parity family (see pyproject)
 
@@ -84,9 +84,9 @@ def test_full_clip_rn_parity(ref_resnet):
             m.running_mean.uniform_(-0.2, 0.2)
             m.running_var.uniform_(0.7, 1.3)
 
-    from clip_embeds_tpu.core.config import CLIPConfig, TextConfig, VisionConfig
-    from clip_embeds_tpu.core.torch_convert import convert_clip_state_dict
-    from clip_embeds_tpu.models.clip import CLIP
+    from clip_embeds.core.config import CLIPConfig, TextConfig, VisionConfig
+    from clip_embeds.core.torch_convert import convert_clip_state_dict
+    from clip_embeds.models.clip import CLIP
 
     cfg = CLIPConfig(
         embed_dim=32,

@@ -16,14 +16,14 @@ from PIL import Image
 import jax
 import jax.numpy as jnp
 
-from clip_embeds_tpu.core.config import VisionConfig
-from clip_embeds_tpu.scores.build import (
+from clip_embeds.core.config import VisionConfig
+from clip_embeds.scores.build import (
     config_from_dict,
     config_to_dict,
     save_score_bundle,
 )
-from clip_embeds_tpu.scores.registry import get_score_model
-from clip_embeds_tpu.scores.vqa_score import format_answer, format_question
+from clip_embeds.scores.registry import get_score_model
+from clip_embeds.scores.vqa_score import format_answer, format_question
 
 REF_VQA = "/root/reference/t2v_metrics/t2v_metrics/models/vqascore_models"
 
@@ -71,8 +71,8 @@ def test_conversation_format_parity(style):
 
 
 def test_config_roundtrip():
-    from clip_embeds_tpu.models.instructblip import InstructBlipConfig
-    from clip_embeds_tpu.models.llava import LlavaConfig
+    from clip_embeds.models.instructblip import InstructBlipConfig
+    from clip_embeds.models.llava import LlavaConfig
 
     for cfg in (LlavaConfig(), InstructBlipConfig()):
         d = config_to_dict(cfg)
@@ -83,8 +83,8 @@ def test_config_roundtrip():
 
 
 def test_default_model_configs_cover_registry():
-    from clip_embeds_tpu.scores.build import default_model_config
-    from clip_embeds_tpu.scores.registry import (
+    from clip_embeds.scores.build import default_model_config
+    from clip_embeds.scores.registry import (
         BLIP2_ITC_MODELS,
         BLIP2_ITM_MODELS,
         IMAGE_REWARD_MODELS,
@@ -121,8 +121,8 @@ def _img():
 ])
 @pytest.mark.slow
 def test_get_score_model_llava_family(tmp_path, name, style):
-    from clip_embeds_tpu.models.llama import LlamaConfig
-    from clip_embeds_tpu.models.llava import (
+    from clip_embeds.models.llama import LlamaConfig
+    from clip_embeds.models.llava import (
         IMAGE_TOKEN_INDEX,
         Llava,
         LlavaConfig,
@@ -154,9 +154,9 @@ def test_get_score_model_llava_family(tmp_path, name, style):
 
 @pytest.mark.slow
 def test_get_score_model_clip_t5(tmp_path):
-    from clip_embeds_tpu.models.clip_t5 import CLIPT5, CLIPT5Config
-    from clip_embeds_tpu.models.llava import IMAGE_TOKEN_INDEX
-    from clip_embeds_tpu.models.t5 import T5Config
+    from clip_embeds.models.clip_t5 import CLIPT5, CLIPT5Config
+    from clip_embeds.models.llava import IMAGE_TOKEN_INDEX
+    from clip_embeds.models.t5 import T5Config
 
     cfg = CLIPT5Config(
         t5=T5Config(vocab_size=256, d_model=64, d_kv=16, d_ff=128,
@@ -185,12 +185,12 @@ def test_get_score_model_clip_t5(tmp_path):
 
 @pytest.mark.slow
 def test_get_score_model_instructblip(tmp_path):
-    from clip_embeds_tpu.models.blip2 import QFormerConfig
-    from clip_embeds_tpu.models.instructblip import (
+    from clip_embeds.models.blip2 import QFormerConfig
+    from clip_embeds.models.instructblip import (
         InstructBlipConfig,
         InstructBlipT5,
     )
-    from clip_embeds_tpu.models.t5 import T5Config
+    from clip_embeds.models.t5 import T5Config
 
     cfg = InstructBlipConfig(
         vision=VisionConfig(image_size=32, patch_size=16, width=64,
@@ -223,7 +223,7 @@ def test_get_score_model_instructblip(tmp_path):
 
 
 def _tiny_blip2_cfg():
-    from clip_embeds_tpu.models.blip2 import Blip2Config, QFormerConfig
+    from clip_embeds.models.blip2 import Blip2Config, QFormerConfig
 
     return Blip2Config(
         vision=VisionConfig(image_size=32, patch_size=16, width=64,
@@ -238,7 +238,7 @@ def _tiny_blip2_cfg():
 
 @pytest.mark.slow
 def test_get_score_model_blip2_itm(tmp_path):
-    from clip_embeds_tpu.models.blip2 import Blip2ITM
+    from clip_embeds.models.blip2 import Blip2ITM
 
     cfg = _tiny_blip2_cfg()
     model = Blip2ITM(cfg)
@@ -260,7 +260,7 @@ def test_get_score_model_blip2_itm(tmp_path):
 
 @pytest.mark.slow
 def test_get_score_model_blip2_itc(tmp_path):
-    from clip_embeds_tpu.models.blip2 import Blip2ITM
+    from clip_embeds.models.blip2 import Blip2ITM
 
     cfg = _tiny_blip2_cfg()
     model = Blip2ITM(cfg)
@@ -282,7 +282,7 @@ def test_get_score_model_blip2_itc(tmp_path):
 
 @pytest.mark.slow
 def test_get_score_model_image_reward(tmp_path):
-    from clip_embeds_tpu.models.blip import (
+    from clip_embeds.models.blip import (
         BlipConfig,
         BlipTextConfig,
         ImageReward,
@@ -351,9 +351,9 @@ def test_convert_cli_llava_end_to_end(tmp_path):
     ckpt = tmp_path / "hf.pt"
     torch.save(hf.state_dict(), str(ckpt))
 
-    from clip_embeds_tpu.models.llama import LlamaConfig
-    from clip_embeds_tpu.models.llava import LlavaConfig
-    from clip_embeds_tpu.scores.build import config_to_dict
+    from clip_embeds.models.llama import LlamaConfig
+    from clip_embeds.models.llava import LlavaConfig
+    from clip_embeds.scores.build import config_to_dict
 
     tiny = LlavaConfig(
         llama=LlamaConfig(vocab_size=256, hidden_size=64,
@@ -367,7 +367,7 @@ def test_convert_cli_llava_end_to_end(tmp_path):
 
     cfg_json.write_text(json.dumps(config_to_dict(tiny)))
 
-    from clip_embeds_tpu.cli.convert import main as convert_main
+    from clip_embeds.cli.convert import main as convert_main
 
     out = tmp_path / "bundle"
     rc = convert_main([
@@ -413,9 +413,9 @@ def test_convert_cli_llava_phi3_route(tmp_path):
     ckpt = tmp_path / "hf_phi3.pt"
     torch.save(hf.state_dict(), str(ckpt))
 
-    from clip_embeds_tpu.models.llama import LlamaConfig
-    from clip_embeds_tpu.models.llava import LlavaConfig
-    from clip_embeds_tpu.scores.build import config_to_dict
+    from clip_embeds.models.llama import LlamaConfig
+    from clip_embeds.models.llava import LlavaConfig
+    from clip_embeds.scores.build import config_to_dict
 
     tiny = LlavaConfig(
         llama=LlamaConfig(vocab_size=256, hidden_size=64,
@@ -429,7 +429,7 @@ def test_convert_cli_llava_phi3_route(tmp_path):
     cfg_json = tmp_path / "tiny.json"
     cfg_json.write_text(json.dumps(config_to_dict(tiny)))
 
-    from clip_embeds_tpu.cli.convert import main as convert_main
+    from clip_embeds.cli.convert import main as convert_main
 
     out = tmp_path / "bundle"
     rc = convert_main([
@@ -449,8 +449,8 @@ def test_get_score_model_llava_int8_trunk(tmp_path):
     """quant=True routes the LLaVA trunk through W8A8 QuantDense
     (build.py llava branch; models/quant.py quantize_llava_trunk) — scores
     stay close to the fp path."""
-    from clip_embeds_tpu.models.llama import LlamaConfig
-    from clip_embeds_tpu.models.llava import (
+    from clip_embeds.models.llama import LlamaConfig
+    from clip_embeds.models.llava import (
         IMAGE_TOKEN_INDEX,
         Llava,
         LlavaConfig,
@@ -488,9 +488,9 @@ def test_get_score_model_llava_int8_trunk(tmp_path):
 def test_get_score_model_llava_scan_trunk(tmp_path):
     """scan=True restacks the bundle's unrolled params and serves through
     the lax.scan trunk — scores equal the unrolled path (compile-time
-    deployment option; PERF.md round 4)."""
-    from clip_embeds_tpu.models.llama import LlamaConfig
-    from clip_embeds_tpu.models.llava import (
+    deployment option)."""
+    from clip_embeds.models.llama import LlamaConfig
+    from clip_embeds.models.llava import (
         IMAGE_TOKEN_INDEX,
         Llava,
         LlavaConfig,

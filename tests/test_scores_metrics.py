@@ -6,14 +6,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from clip_embeds_tpu.evals.metrics import (
+from clip_embeds.evals.metrics import (
     get_scores,
     retrieval_metrics,
     winoground_accuracy,
     winoground_scores,
     zero_shot_accuracy,
 )
-from clip_embeds_tpu.scores.score import Score
+from clip_embeds.scores.score import Score
 
 
 def test_get_scores_perfect():
@@ -106,7 +106,7 @@ def test_score_batch_forward():
 
 
 def test_lora_roundtrip():
-    from clip_embeds_tpu.models.lora import init_lora, materialize, merge_lora
+    from clip_embeds.models.lora import init_lora, materialize, merge_lora
 
     params = {
         "language_model": {
@@ -158,7 +158,7 @@ def test_lora_roundtrip():
 
 
 def test_lora_gradients_only_adapters():
-    from clip_embeds_tpu.models.lora import init_lora, materialize
+    from clip_embeds.models.lora import init_lora, materialize
 
     params = {"q_proj": {"kernel": np.ones((4, 4), np.float32)}}
     lora = init_lora(params, rank=2, exclude=())
@@ -183,7 +183,7 @@ def test_tau_optimization_matches_reference():
     ref = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ref)
 
-    from clip_embeds_tpu.evals.tau import TauStats, tau_optimization
+    from clip_embeds.evals.tau import TauStats, tau_optimization
 
     rng = np.random.default_rng(0)
     human = rng.integers(0, 4, (6, 8)).astype(float)
@@ -199,7 +199,7 @@ def test_tau_optimization_matches_reference():
 
 
 def test_tau_optimization_perfect_metric():
-    from clip_embeds_tpu.evals.tau import TauStats, tau_optimization
+    from clip_embeds.evals.tau import TauStats, tau_optimization
 
     human = np.asarray([[1.0, 2.0, 3.0, 4.0]])
     res = tau_optimization(human, human, TauStats.acc_23)
@@ -214,7 +214,7 @@ def test_kendall_variants_vs_reference():
     # use scipy as the independent oracle for tau-b instead
     from scipy import stats
 
-    from clip_embeds_tpu.evals.tau import correlation_metrics, kendall_variants
+    from clip_embeds.evals.tau import correlation_metrics, kendall_variants
 
     rng = np.random.default_rng(3)
     gold = rng.integers(0, 5, 30).astype(float)
@@ -236,7 +236,7 @@ def test_score_model_name_registry():
     """t2v get_score_model dispatch surface: name lists + CLIP-family build."""
     import pytest as _pytest
 
-    from clip_embeds_tpu.scores.registry import (
+    from clip_embeds.scores.registry import (
         get_score_model,
         list_all_clipscore_models,
         list_all_models,

@@ -5,7 +5,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from clip_embeds_tpu.models.siglip import (
+from clip_embeds.models.siglip import (
     Siglip,
     SiglipConfig,
     SiglipTextConfig,
@@ -91,7 +91,7 @@ def test_siglip_with_sigmoid_loss(hf_model):
     """The SigLIP model pairs with losses/siglip.py's sigmoid loss."""
     import jax
 
-    from clip_embeds_tpu.losses.siglip import siglip_loss
+    from clip_embeds.losses.siglip import siglip_loss
 
     model = Siglip(tiny_cfg(), attn_impl="reference")
     params = convert_siglip_state_dict(
@@ -116,13 +116,13 @@ def test_siglip_scorer_protocols():
     import numpy as np
     from PIL import Image
 
-    from clip_embeds_tpu.models.siglip import (
+    from clip_embeds.models.siglip import (
         Siglip,
         SiglipConfig,
         SiglipTextConfig,
         SiglipVisionConfig,
     )
-    from clip_embeds_tpu.scores.scorers import SiglipScorer
+    from clip_embeds.scores.scorers import SiglipScorer
 
     cfg = SiglipConfig(
         vision=SiglipVisionConfig(image_size=28, patch_size=14, width=32,
@@ -169,15 +169,15 @@ def test_siglip_e2e_with_native_tokenizer(tmp_path):
     import numpy as np
     from PIL import Image
 
-    from clip_embeds_tpu.models.siglip import (
+    from clip_embeds.models.siglip import (
         Siglip,
         SiglipConfig,
         SiglipTextConfig,
         SiglipVisionConfig,
     )
-    from clip_embeds_tpu.scores.scorers import SiglipScorer
-    from clip_embeds_tpu.text.tokenizer import SigLipTokenizer
-    from clip_embeds_tpu.text.unigram import (
+    from clip_embeds.scores.scorers import SiglipScorer
+    from clip_embeds.text.tokenizer import SigLipTokenizer
+    from clip_embeds.text.unigram import (
         CONTROL,
         NORMAL,
         UNKNOWN,

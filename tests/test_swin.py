@@ -9,7 +9,7 @@ import jax.numpy as jnp
 
 pytestmark = pytest.mark.slow  # torch-oracle parity family (see pyproject)
 
-from clip_embeds_tpu.models.swin import (  # noqa: E402
+from clip_embeds.models.swin import (  # noqa: E402
     SwinConfig,
     SwinTower,
     convert_swin_trunk_state_dict,
@@ -222,8 +222,8 @@ def test_swin_parity(torch_swin):
 
 
 def test_swin_registry_native():
-    from clip_embeds_tpu.core.config import get_model_config
-    from clip_embeds_tpu.core.openclip_registry import classify_model
+    from clip_embeds.core.config import get_model_config
+    from clip_embeds.core.openclip_registry import classify_model
 
     backend, detail = classify_model("swin_base_patch4_window7_224")
     assert backend == "clip", detail

@@ -5,8 +5,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from clip_embeds_tpu.core.torch_convert import convert_t5_state_dict
-from clip_embeds_tpu.models.t5 import (
+from clip_embeds.core.torch_convert import convert_t5_state_dict
+from clip_embeds.models.t5 import (
     T5Config,
     T5ForConditionalGeneration,
     shift_right,

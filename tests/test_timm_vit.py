@@ -9,7 +9,7 @@ import jax.numpy as jnp
 
 pytestmark = pytest.mark.slow  # torch-oracle parity family (see pyproject)
 
-from clip_embeds_tpu.models.timm_vit import (  # noqa: E402
+from clip_embeds.models.timm_vit import (  # noqa: E402
     TimmViTConfig,
     TimmViTTower,
     convert_timm_vit_state_dict,
@@ -121,8 +121,8 @@ def test_timm_gap_vit_parity(torch_gap_vit):
 
 
 def test_timm_vit_registry_native():
-    from clip_embeds_tpu.core.config import get_model_config
-    from clip_embeds_tpu.core.openclip_registry import classify_model
+    from clip_embeds.core.config import get_model_config
+    from clip_embeds.core.openclip_registry import classify_model
 
     backend, detail = classify_model("vit_medium_patch16_gap_256")
     assert backend == "clip", detail
@@ -131,8 +131,8 @@ def test_timm_vit_registry_native():
     assert cfg.vision.width == 512 and cfg.vision.image_size == 256
     assert cfg.vision.pool_type == "avg" and cfg.vision.final_ln_after_pool
 
-    from clip_embeds_tpu.core.config import CLIPConfig, TextConfig, VisionConfig
-    from clip_embeds_tpu.models.clip import CLIP
+    from clip_embeds.core.config import CLIPConfig, TextConfig, VisionConfig
+    from clip_embeds.models.clip import CLIP
 
     clip_cfg = CLIPConfig(
         embed_dim=24,

@@ -11,7 +11,7 @@ import types
 import numpy as np
 import pytest
 
-from clip_embeds_tpu.text.tokenizer import BPETokenizer, get_tokenizer
+from clip_embeds.text.tokenizer import BPETokenizer, get_tokenizer
 
 CORPUS = [
     "a photo of a cat",
@@ -116,7 +116,7 @@ def test_canonicalize_matches_reference():
     ref = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ref)
 
-    from clip_embeds_tpu.text.tokenizer import canonicalize_text, get_clean_fn
+    from clip_embeds.text.tokenizer import canonicalize_text, get_clean_fn
 
     cases = [
         "Hello_World! It's  GREAT.",
@@ -140,7 +140,7 @@ def test_hf_tokenizer_wrapper(tmp_path):
     (tmp_path / "vocab.txt").write_text("\n".join(vocab))
     BertTokenizer(str(tmp_path / "vocab.txt")).save_pretrained(str(tmp_path))
 
-    from clip_embeds_tpu.text.tokenizer import HFTokenizer
+    from clip_embeds.text.tokenizer import HFTokenizer
 
     tok = HFTokenizer(str(tmp_path), context_length=8)
     ids = tok(["Hello  WORLD", "a b"])
@@ -154,7 +154,7 @@ def test_hf_tokenizer_wrapper(tmp_path):
 
 
 def test_reduction_mask_tokenizers():
-    from clip_embeds_tpu.text.tokenizer import (
+    from clip_embeds.text.tokenizer import (
         BPETokenizer,
         get_reduction_mask_fn,
         simple_mask_tokenize,
@@ -186,7 +186,7 @@ def test_reduction_mask_tokenizers():
 def test_siglip_tokenizer_missing_file():
     import pytest as _pytest
 
-    from clip_embeds_tpu.text.tokenizer import SigLipTokenizer
+    from clip_embeds.text.tokenizer import SigLipTokenizer
 
     with _pytest.raises(FileNotFoundError, match="c4-en"):
         SigLipTokenizer("c4-en")
@@ -194,7 +194,7 @@ def test_siglip_tokenizer_missing_file():
 
 def _tiny_spm_pieces():
     """A tiny unigram vocab in sentencepiece id order (specials first)."""
-    from clip_embeds_tpu.text.unigram import CONTROL, NORMAL, UNKNOWN
+    from clip_embeds.text.unigram import CONTROL, NORMAL, UNKNOWN
 
     words = ["the", "cat", "sat", "on", "mat", "a", "dog", "ran", "to",
              "hat", "rat", "t", "h", "e", "c", "a", "o", "n", "m", "s",
@@ -211,7 +211,7 @@ def _tiny_spm_pieces():
 
 
 def test_spm_model_proto_roundtrip(tmp_path):
-    from clip_embeds_tpu.text.unigram import (
+    from clip_embeds.text.unigram import (
         UnigramTokenizer,
         parse_model_proto,
         write_model_proto,
@@ -238,7 +238,7 @@ def test_spm_unigram_matches_hf_tokenizers_engine():
     tokenizers = pytest.importorskip("tokenizers")
     from tokenizers import Tokenizer, models, normalizers, pre_tokenizers
 
-    from clip_embeds_tpu.text.unigram import UNKNOWN, UnigramTokenizer
+    from clip_embeds.text.unigram import UNKNOWN, UnigramTokenizer
 
     pieces = _tiny_spm_pieces()
     ours = UnigramTokenizer(pieces)
@@ -271,8 +271,8 @@ def test_spm_unigram_matches_hf_tokenizers_engine():
 
 
 def test_siglip_tokenizer_end_to_end(tmp_path):
-    from clip_embeds_tpu.text.tokenizer import SigLipTokenizer
-    from clip_embeds_tpu.text.unigram import write_model_proto
+    from clip_embeds.text.tokenizer import SigLipTokenizer
+    from clip_embeds.text.unigram import write_model_proto
 
     path = tmp_path / "c4-en-tiny.model"
     path.write_bytes(write_model_proto(_tiny_spm_pieces()))
@@ -298,7 +298,7 @@ def test_syntax_mask_tokenize_matches_reference_algorithm():
     (tokenizer.py:330-389) with an injected deterministic tagger."""
     import numpy as np
 
-    from clip_embeds_tpu.text.tokenizer import (
+    from clip_embeds.text.tokenizer import (
         BPETokenizer,
         get_reduction_mask_fn,
         syntax_mask_tokenize,
@@ -350,3 +350,62 @@ def test_syntax_mask_tokenize_matches_reference_algorithm():
     out = fn([text], tok)
     assert out.shape == (1, 12) and out[0, 0] == tok.sot_token_id
     assert (out == tok.eot_token_id).any()
+
+
+# -- stdlib pre-tokenizer vs the reference's `regex` pattern ----------------
+
+_SPECIALS = ["<start_of_text>", "<end_of_text>"]
+_REGEX_PATTERN = (
+    r"""'s|'t|'re|'ve|'m|'ll|'d|[\p{L}]+|[\p{N}]|[^\s\p{L}\p{N}]+""")
+
+
+@pytest.fixture(scope="module")
+def regex_words():
+    regex = pytest.importorskip("regex")
+    pat = regex.compile("|".join(_SPECIALS) + "|" + _REGEX_PATTERN,
+                        regex.IGNORECASE)
+    return pat.findall
+
+
+SCANNER_CORPUS = CORPUS + [
+    "<start_of_text>A Photo<END_OF_TEXT> <start_of_textx",
+    "it'S they'LL we'VE i'M he'D don'T you'RE 'ſ 'Ss",
+    "Kelvin İstanbul ſs ͅxͅ",
+    "sep\x1crow\x1dgroup\x1eunit\x1fend  nbsp em　ideo",
+    "x² ½ Ⅻ ⅻ ① ٣ ๓ 𝟙 3.14 1,000",
+    "!'s ''s '''t a'b' --'ll",
+]
+
+
+@pytest.mark.parametrize("text", SCANNER_CORPUS)
+def test_split_words_matches_regex_on_corpus(text, regex_words):
+    from clip_embeds.text.tokenizer import split_words
+
+    assert split_words(text, _SPECIALS) == regex_words(text)
+
+
+def test_split_words_matches_regex_property(regex_words):
+    """Any text over the characters this interpreter's Unicode database
+    assigns (the `regex` module may carry a newer one)."""
+    from hypothesis import given, settings, strategies as st
+
+    from clip_embeds.text.tokenizer import split_words
+
+    chars = st.characters(exclude_categories=("Cs", "Cn"))
+    pieces = st.one_of(
+        st.text(chars, max_size=8),
+        st.sampled_from(_SPECIALS + ["'s", "'T", "'ll", "'Re", " ", "\t",
+                                     "ſ", "K", "İ", "ͅ"]))
+
+    @settings(max_examples=400, deadline=None, derandomize=True)
+    @given(st.lists(pieces, max_size=12))
+    def check(parts):
+        text = "".join(parts)
+        assert split_words(text, _SPECIALS) == regex_words(text)
+
+    check()
+
+
+def test_non_ascii_special_tokens_rejected():
+    with pytest.raises(ValueError, match="ASCII"):
+        BPETokenizer(additional_special_tokens=["<bild>", "<図>"])

@@ -7,13 +7,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from clip_embeds_tpu.core.config import get_model_config
-from clip_embeds_tpu.core.factory import create_model
-from clip_embeds_tpu.data.synthetic import synthetic_batches
-from clip_embeds_tpu.parallel.mesh import batch_sharding, create_mesh
-from clip_embeds_tpu.train.optim import adamw, decay_mask
-from clip_embeds_tpu.train.schedules import cosine_lr
-from clip_embeds_tpu.train.steps import TrainState, make_clip_train_step
+from clip_embeds.core.config import get_model_config
+from clip_embeds.core.factory import create_model
+from clip_embeds.data.synthetic import synthetic_batches
+from clip_embeds.parallel.mesh import batch_sharding, create_mesh
+from clip_embeds.train.optim import adamw, decay_mask
+from clip_embeds.train.schedules import cosine_lr
+from clip_embeds.train.steps import TrainState, make_clip_train_step
 
 
 @pytest.fixture(scope="module")
@@ -68,8 +68,8 @@ def test_grad_cache_matches_plain(tiny_model):
     tx = adamw(0.0, weight_decay=0.0)  # lr 0: compare grads via loss only
     batch = _batches(1, bs=8)[0]
 
-    from clip_embeds_tpu.losses.clip_loss import clip_loss
-    from clip_embeds_tpu.train.grad_cache import cache_grad_step
+    from clip_embeds.losses.clip_loss import clip_loss
+    from clip_embeds.train.grad_cache import cache_grad_step
 
     def encode(p, chunk):
         out = model.apply({"params": p}, chunk["images"], chunk["texts"])
@@ -139,7 +139,7 @@ def test_decay_mask_excludes_norms_and_scalars(tiny_model):
 def test_remat_train_step_runs():
     """Regression: remat + flash custom_vjp static args (nn.remat counts self
     as argnum 0; a wrong index leaks a tracer into nondiff_argnums)."""
-    from clip_embeds_tpu.models.clip import CLIP
+    from clip_embeds.models.clip import CLIP
 
     model0, params = create_model("test-tiny", attn_impl="reference")
     model = CLIP(model0.cfg, attn_impl="reference", remat=True)
@@ -154,7 +154,7 @@ def test_remat_train_step_runs():
 @pytest.mark.slow
 def test_zero1_sharded_opt_state_matches(tiny_model):
     """Optimizer-state sharding over the mesh preserves the update exactly."""
-    from clip_embeds_tpu.parallel.sharding_rules import zero1_opt_state_sharding
+    from clip_embeds.parallel.sharding_rules import zero1_opt_state_sharding
 
     model, params = tiny_model
     tx = adamw(1e-3)
@@ -182,7 +182,7 @@ def test_zero1_sharded_opt_state_matches(tiny_model):
 
 
 def test_vlm2vec_argument_dataclasses():
-    from clip_embeds_tpu.train.arguments import (
+    from clip_embeds.train.arguments import (
         DataArguments,
         ModelArguments,
         MTEBArguments,
@@ -219,11 +219,11 @@ def test_model_bundle_roundtrip(tmp_path):
     import jax.numpy as jnp
     import numpy as np
 
-    from clip_embeds_tpu.core.export import (
+    from clip_embeds.core.export import (
         load_model_bundle,
         save_model_bundle,
     )
-    from clip_embeds_tpu.core.factory import create_model
+    from clip_embeds.core.factory import create_model
 
     model, params = create_model("test-tiny", seed=7)
     folder = save_model_bundle(
@@ -252,7 +252,7 @@ def test_model_bundle_roundtrip(tmp_path):
 def test_distill_train_step(tiny_model):
     """--distill path: student improves while the teacher stays frozen
     (reference main.py:208-248, train.py:70-107, loss.py:241-277)."""
-    from clip_embeds_tpu.train.steps import make_distill_train_step
+    from clip_embeds.train.steps import make_distill_train_step
 
     model, params = tiny_model
     _, teacher_params = create_model("test-tiny", attn_impl="reference",
@@ -280,7 +280,7 @@ def test_distill_train_step(tiny_model):
 def test_distill_cli_synthetic(tmp_path):
     """End-to-end --distill train on the synthetic dataset (CLI flags
     --distill-model/--distill-pretrained, reference params.py:461-469)."""
-    from clip_embeds_tpu.cli.train import main
+    from clip_embeds.cli.train import main
 
     state = main([
         "--model", "test-tiny", "--dataset-type", "synthetic",
@@ -295,7 +295,7 @@ def test_fsdp_sharded_step_matches_single_device(tiny_model):
     """FSDP param sharding (fsdp_param_specs over the data axis) preserves
     the training trajectory exactly: XLA all-gathers params per use and
     reduce-scatters grads; the math is unchanged."""
-    from clip_embeds_tpu.parallel.sharding_rules import (
+    from clip_embeds.parallel.sharding_rules import (
         fsdp_param_specs,
         fsdp_shard_params,
     )

@@ -12,8 +12,8 @@ from PIL import Image
 import jax
 import jax.numpy as jnp
 
-from clip_embeds_tpu.core.factory import create_model
-from clip_embeds_tpu.train.freeze import tower_freeze_labels
+from clip_embeds.core.factory import create_model
+from clip_embeds.train.freeze import tower_freeze_labels
 
 
 def test_patch_dropout_train_vs_eval():
@@ -125,8 +125,8 @@ def _write_csv_corpus(tmp_path, n=16):
 def test_train_cli_full_feature_pass(tmp_path, monkeypatch):
     """One CLI run exercising lock-text, patch dropout, grad clip,
     accum-freq, val evaluate, zero-shot frequency and checkpoint policy."""
-    from clip_embeds_tpu.cli import train as train_cli
-    from clip_embeds_tpu.evals import zero_shot as zs
+    from clip_embeds.cli import train as train_cli
+    from clip_embeds.evals import zero_shot as zs
 
     csv_path = _write_csv_corpus(tmp_path)
 
@@ -184,7 +184,7 @@ def test_train_cli_full_feature_pass(tmp_path, monkeypatch):
 
 @pytest.mark.slow
 def test_train_cli_accum_freq_maps_to_grad_cache(tmp_path):
-    from clip_embeds_tpu.cli import train as train_cli
+    from clip_embeds.cli import train as train_cli
 
     csv_path = _write_csv_corpus(tmp_path)
     state = train_cli.main([
@@ -200,7 +200,7 @@ def test_train_cli_const_cooldown_and_remote_sync(tmp_path):
     """--lr-scheduler const-cooldown reaches the cooldown schedule (was
     silently falling back to plain const), and --remote-sync mirrors the
     checkpoint dir locally."""
-    from clip_embeds_tpu.cli import train as train_cli
+    from clip_embeds.cli import train as train_cli
 
     csv_path = _write_csv_corpus(tmp_path)
     ckpt_dir = tmp_path / "ckpts"
@@ -224,10 +224,10 @@ def test_train_cli_const_cooldown_and_remote_sync(tmp_path):
 
 
 def test_coca_train_step_decreases_loss():
-    from clip_embeds_tpu.core.config import TextConfig, VisionConfig
-    from clip_embeds_tpu.models.coca import CoCa, CoCaConfig, MultimodalConfig
-    from clip_embeds_tpu.train.optim import adamw
-    from clip_embeds_tpu.train.steps import TrainState, make_coca_train_step
+    from clip_embeds.core.config import TextConfig, VisionConfig
+    from clip_embeds.models.coca import CoCa, CoCaConfig, MultimodalConfig
+    from clip_embeds.train.optim import adamw
+    from clip_embeds.train.steps import TrainState, make_coca_train_step
 
     cfg = CoCaConfig(
         embed_dim=32,
@@ -267,7 +267,7 @@ def test_factory_builds_coca_by_name():
 
 
 def test_remat_attn_policy_grads_match_full_remat():
-    from clip_embeds_tpu.models.clip import CLIP
+    from clip_embeds.models.clip import CLIP
 
     base, params = create_model("test-tiny", seed=0)
     rng = np.random.default_rng(0)
@@ -290,7 +290,7 @@ def test_remat_attn_policy_grads_match_full_remat():
 @pytest.mark.slow
 def test_train_cli_fsdp(tmp_path):
     """--fsdp trains with params sharded over the 8-device data axis."""
-    from clip_embeds_tpu.cli import train as train_cli
+    from clip_embeds.cli import train as train_cli
 
     csv_path = _write_csv_corpus(tmp_path)
     state = train_cli.main([
@@ -306,8 +306,8 @@ def test_train_cli_fsdp(tmp_path):
 
 @pytest.mark.slow
 def test_train_cli_async_checkpoints(tmp_path):
-    from clip_embeds_tpu.cli import train as train_cli
-    from clip_embeds_tpu.core import checkpoint as ckpt
+    from clip_embeds.cli import train as train_cli
+    from clip_embeds.core import checkpoint as ckpt
 
     csv_path = _write_csv_corpus(tmp_path)
     ckpt_dir = tmp_path / "ck"
@@ -331,8 +331,8 @@ def test_train_cli_async_checkpoints(tmp_path):
 def test_train_pacl_cli_both_objectives(tmp_path):
     """PACL and SPARC head training end-to-end (frozen tiny tower, synthetic
     pairs), saved head loads back into the eval scorer's head module."""
-    from clip_embeds_tpu.cli.train_pacl import main as pacl_main
-    from clip_embeds_tpu.core.factory import load_params
+    from clip_embeds.cli.train_pacl import main as pacl_main
+    from clip_embeds.core.factory import load_params
 
     for objective in ("pacl", "sparc"):
         out = tmp_path / f"{objective}_head.npz"

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from clip_embeds_tpu.image.transform import (
+from clip_embeds.image.transform import (
     AugmentationCfg,
     PreprocessCfg,
     center_crop_or_pad,
@@ -158,7 +158,7 @@ def test_eval_longest_mode_shape_and_fill():
 
 
 def test_eval_shortest_matches_preprocess_clip():
-    from clip_embeds_tpu.image.preprocess import preprocess_clip
+    from clip_embeds.image.preprocess import preprocess_clip
 
     img = _img(120, 90)
     fn = image_transform(64, is_train=False, resize_mode="shortest")
@@ -166,7 +166,7 @@ def test_eval_shortest_matches_preprocess_clip():
 
 
 def test_eval_squash_matches_preprocess_siglip():
-    from clip_embeds_tpu.image.preprocess import preprocess_siglip
+    from clip_embeds.image.preprocess import preprocess_siglip
 
     img = _img(120, 90)
     fn = image_transform(64, is_train=False, resize_mode="squash",
@@ -219,7 +219,7 @@ def test_train_transform_aug_cfg_dict_and_gray():
     out = fn(_img(), sample_rng(0, 0, 0))
     assert out.shape == (48, 48, 3)
     # gray_scale_prob=1 -> unnormalized channels equal; verify via de-normalize
-    from clip_embeds_tpu.core.constants import (
+    from clip_embeds.core.constants import (
         OPENAI_DATASET_MEAN,
         OPENAI_DATASET_STD,
     )
@@ -277,7 +277,7 @@ def test_train_transform_timm_random_interpolation():
 
 
 def test_random_erasing_geometry():
-    from clip_embeds_tpu.image.transform import random_erasing
+    from clip_embeds.image.transform import random_erasing
 
     arr = np.zeros((64, 64, 3), np.float32)
     out = random_erasing(arr, np.random.default_rng(0), probability=1.0)
@@ -311,8 +311,8 @@ def _write_images(tmp_path, n=4, size=(80, 100)):
 
 
 def test_csv_batches_train_transform(tmp_path):
-    from clip_embeds_tpu.data.csv_dataset import CsvPairDataset, csv_batches
-    from clip_embeds_tpu.text.tokenizer import get_tokenizer
+    from clip_embeds.data.csv_dataset import CsvPairDataset, csv_batches
+    from clip_embeds.text.tokenizer import get_tokenizer
 
     paths = _write_images(tmp_path)
     csv_file = tmp_path / "data.tsv"
@@ -342,7 +342,7 @@ def test_csv_batches_train_transform(tmp_path):
 def test_datamix_train_transform(tmp_path):
     import json
 
-    from clip_embeds_tpu.data.datamix import DataMixDataset, datamix_batches
+    from clip_embeds.data.datamix import DataMixDataset, datamix_batches
 
     img_dir = tmp_path / "imgs"
     img_dir.mkdir()
@@ -366,7 +366,7 @@ def test_datamix_train_transform(tmp_path):
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x["images"], y["images"])
     # augmented != the deterministic eval transform
-    from clip_embeds_tpu.image.preprocess import preprocess_clip
+    from clip_embeds.image.preprocess import preprocess_clip
 
     ev = preprocess_clip(str(img_dir / "img_0.png"), 32)
     assert not np.allclose(a[0]["images"][0], ev)
@@ -376,12 +376,12 @@ def test_wds_batches_train_transform(tmp_path):
     import io
     import tarfile
 
-    from clip_embeds_tpu.data.wds import (
+    from clip_embeds.data.wds import (
         ShardedTarDataset,
         decode_raw_image_text,
         wds_batches,
     )
-    from clip_embeds_tpu.text.tokenizer import get_tokenizer
+    from clip_embeds.text.tokenizer import get_tokenizer
 
     tar_path = tmp_path / "shard-000000.tar"
     with tarfile.open(tar_path, "w") as tar:
@@ -412,7 +412,7 @@ def test_wds_batches_train_transform(tmp_path):
 
 
 def test_train_cli_aug_cfg_parsing():
-    from clip_embeds_tpu.cli.train import build_train_transform, parse_args
+    from clip_embeds.cli.train import build_train_transform, parse_args
 
     args = parse_args([
         "--aug-cfg", "scale=(0.8, 1.0)", "color_jitter=(0.4,0.4,0.4,0.1)",
@@ -437,8 +437,8 @@ def test_train_cli_aug_cfg_parsing():
 
 
 def test_create_model_and_transforms_entry_preprocess():
-    from clip_embeds_tpu.core.factory import create_model_and_transforms
-    from clip_embeds_tpu.image.preprocess import preprocess_clip
+    from clip_embeds.core.factory import create_model_and_transforms
+    from clip_embeds.image.preprocess import preprocess_clip
 
     model, params, preprocess, tok, preprocess_train = (
         create_model_and_transforms("test-tiny", aug_cfg={})
@@ -456,7 +456,7 @@ def test_get_score_model_hpsv2_pickscore(monkeypatch):
     (reference clipscore_models/{hpsv2,pickscore}_model.py). The real arch is
     ViT-H-14 (~1B params); the alias table is patched to the tiny test arch
     so the full construction + m x n scoring path runs in-test."""
-    from clip_embeds_tpu.scores import registry
+    from clip_embeds.scores import registry
 
     monkeypatch.setitem(registry.CLIPSCORE_ALIASES, "hpsv2",
                         ("test-tiny", "clip"))
@@ -471,7 +471,7 @@ def test_get_score_model_hpsv2_pickscore(monkeypatch):
 
 
 def test_profile_trace_capture(tmp_path):
-    from clip_embeds_tpu.cli.profile import capture_trace
+    from clip_embeds.cli.profile import capture_trace
 
     out = capture_trace("test-tiny", str(tmp_path / "trace"), batch_size=2,
                         steps=1)

@@ -12,7 +12,7 @@ import jax.numpy as jnp
 
 pytestmark = pytest.mark.slow  # torch-oracle parity family (see pyproject)
 
-from clip_embeds_tpu.models.vit_relpos import (  # noqa: E402
+from clip_embeds.models.vit_relpos import (  # noqa: E402
     RelPosViTConfig,
     RelPosViTTower,
     convert_relpos_vit_state_dict,
@@ -194,7 +194,7 @@ def test_relpos_full_size_param_count():
     """Structural check vs the reference's committed profile
     (open_clip/docs/model_profile.csv: vit_relpos_medium_patch16_cls_224
     image tower = 38.51 Mparams incl. the open_clip linear head)."""
-    from clip_embeds_tpu.models.vit_relpos import RELPOS_VIT_SHAPES
+    from clip_embeds.models.vit_relpos import RELPOS_VIT_SHAPES
 
     cfg = RELPOS_VIT_SHAPES["vit_relpos_medium_patch16_cls_224"]
     tower = RelPosViTTower(cfg)
@@ -206,7 +206,7 @@ def test_relpos_full_size_param_count():
 
 
 def test_relpos_registry_builds():
-    from clip_embeds_tpu.core.openclip_registry import (
+    from clip_embeds.core.openclip_registry import (
         classify_model,
         resolve_clip_config,
     )

@@ -12,7 +12,7 @@ import jax.numpy as jnp
 
 pytestmark = pytest.mark.slow  # torch-oracle parity family (see pyproject)
 
-from clip_embeds_tpu.models.vitamin import (  # noqa: E402
+from clip_embeds.models.vitamin import (  # noqa: E402
     VitaminConfig,
     VitaminTower,
     convert_vitamin_trunk_state_dict,
@@ -216,8 +216,8 @@ def test_vitamin_parity(torch_vitamin):
 
 
 def test_vitamin_registry_and_factory():
-    from clip_embeds_tpu.core.config import get_model_config
-    from clip_embeds_tpu.core.openclip_registry import classify_model
+    from clip_embeds.core.config import get_model_config
+    from clip_embeds.core.openclip_registry import classify_model
 
     for name in ("ViTamin-S", "ViTamin-B", "ViTamin-L", "ViTamin-L-336",
                  "ViTamin-L2", "ViTamin-XL-256"):
@@ -234,8 +234,8 @@ def test_vitamin_registry_and_factory():
     assert vc.width == 1152 and vc.depth == 32
 
     # tiny stand-in through the CLIP assembly
-    from clip_embeds_tpu.core.config import CLIPConfig, TextConfig, VisionConfig
-    from clip_embeds_tpu.models.clip import CLIP
+    from clip_embeds.core.config import CLIPConfig, TextConfig, VisionConfig
+    from clip_embeds.models.clip import CLIP
 
     clip_cfg = CLIPConfig(
         embed_dim=32,

@@ -10,13 +10,13 @@ from PIL import Image
 import jax
 import jax.numpy as jnp
 
-from clip_embeds_tpu.core.config import VisionConfig
-from clip_embeds_tpu.models.llama import LlamaConfig
-from clip_embeds_tpu.models.llava import Llava, LlavaConfig
-from clip_embeds_tpu.models.lora import init_lora
-from clip_embeds_tpu.train.optim import adamw
-from clip_embeds_tpu.train.steps import TrainState
-from clip_embeds_tpu.train.vlm2vec import make_vlm2vec_train_step
+from clip_embeds.core.config import VisionConfig
+from clip_embeds.models.llama import LlamaConfig
+from clip_embeds.models.llava import Llava, LlavaConfig
+from clip_embeds.models.lora import init_lora
+from clip_embeds.train.optim import adamw
+from clip_embeds.train.steps import TrainState
+from clip_embeds.train.vlm2vec import make_vlm2vec_train_step
 
 pytestmark = pytest.mark.slow  # torch-oracle parity family (see pyproject)
 
@@ -82,10 +82,10 @@ def test_lora_layouts_and_merge_guard():
     """normalize_lora accepts all three adapter layouts that occur in
     practice (canonical / trainer npz-flat / nested), merge changes the
     targeted kernels, and unmatched adapter keys are a HARD error instead
-    of a silent zero-delta merge (VERDICT r4 Weak #1; reference peft
+    of a silent zero-delta merge (reference peft
     merge_and_unload round-trips, VLM2Vec/src/model.py:146-210)."""
-    from clip_embeds_tpu.core.factory import flatten_params, unflatten_params
-    from clip_embeds_tpu.models.lora import merge_lora, normalize_lora
+    from clip_embeds.core.factory import flatten_params, unflatten_params
+    from clip_embeds.models.lora import merge_lora, normalize_lora
 
     _, base_params = tiny_llava()
     lora = init_lora(base_params, rank=2, rng=jax.random.PRNGKey(3))
@@ -124,7 +124,7 @@ def test_mmeb_embedding_cache_hit(tmp_path):
     """_cached_encode round-trips through the pickle cache: the second
     evaluate_subset call must NOT re-encode (reference eval.py:31+ skips
     encoding when the cache file exists)."""
-    from clip_embeds_tpu.evals.mmeb import evaluate_subset
+    from clip_embeds.evals.mmeb import evaluate_subset
 
     rows = [
         {"qry_text": "q1", "qry_img_path": "", "tgt_text": ["a", "b"],
@@ -193,7 +193,7 @@ def _mixed_batch(n=4, length=16):
 
 
 def test_vlm2vec_mixed_training_step():
-    from clip_embeds_tpu.train.vlm2vec import make_vlm2vec_mixed_train_step
+    from clip_embeds.train.vlm2vec import make_vlm2vec_mixed_train_step
 
     model, base_params = tiny_llava()
     lora = init_lora(base_params, rank=2, rng=jax.random.PRNGKey(1))
@@ -208,7 +208,7 @@ def test_vlm2vec_mixed_training_step():
 
 
 def test_vlm2vec_mixed_grad_cache_matches_plain():
-    from clip_embeds_tpu.train.vlm2vec import make_vlm2vec_mixed_train_step
+    from clip_embeds.train.vlm2vec import make_vlm2vec_mixed_train_step
 
     model, base_params = tiny_llava()
     lora = init_lora(base_params, rank=2, rng=jax.random.PRNGKey(1))
@@ -225,7 +225,7 @@ def test_vlm2vec_mixed_grad_cache_matches_plain():
 
 def test_vlm2vec_mixed_full_finetune_step():
     """base_params=None: state.params IS the full tree (no adapters)."""
-    from clip_embeds_tpu.train.vlm2vec import make_vlm2vec_mixed_train_step
+    from clip_embeds.train.vlm2vec import make_vlm2vec_mixed_train_step
 
     model, base_params = tiny_llava()
     step = jax.jit(make_vlm2vec_mixed_train_step(model, None))
@@ -240,7 +240,7 @@ def test_train_vlm2vec_cli_synthetic(tmp_path):
     """End-to-end CLI smoke on the synthetic route: tiny random-init model,
     LoRA + grad-cache, adapter npz + merged score bundle written, and the
     merged bundle round-trips through build's loader."""
-    from clip_embeds_tpu.cli.train_vlm2vec import main
+    from clip_embeds.cli.train_vlm2vec import main
 
     out = os.path.join(tmp_path, "run")
     rc = main([
@@ -251,7 +251,7 @@ def test_train_vlm2vec_cli_synthetic(tmp_path):
     ])
     assert rc == 0
     assert os.path.exists(os.path.join(out, "adapter-final.npz"))
-    from clip_embeds_tpu.scores.build import load_score_bundle
+    from clip_embeds.scores.build import load_score_bundle
 
     meta, params = load_score_bundle(os.path.join(out, "merged"))
     assert meta["family"] == "llava" and "language_model" in params
@@ -259,7 +259,7 @@ def test_train_vlm2vec_cli_synthetic(tmp_path):
 
 def test_train_vlm2vec_cli_mmeb_route(tmp_path):
     """CLI over an MMEB-style subset dir (mixed batches route)."""
-    from clip_embeds_tpu.cli.train_vlm2vec import main
+    from clip_embeds.cli.train_vlm2vec import main
 
     img_path = os.path.join(tmp_path, "im.png")
     Image.fromarray(
@@ -289,8 +289,8 @@ def test_eval_mmeb_cli(tmp_path):
     subset json, per-subset accuracy + cached embeddings + results.json;
     also exercises the trained-adapter merge route (train_vlm2vec output
     npz -> merge_lora before eval)."""
-    from clip_embeds_tpu.cli.eval_mmeb import main as eval_main
-    from clip_embeds_tpu.cli.train_vlm2vec import main as train_main
+    from clip_embeds.cli.eval_mmeb import main as eval_main
+    from clip_embeds.cli.train_vlm2vec import main as train_main
 
     img_path = os.path.join(tmp_path, "im.png")
     Image.fromarray(
@@ -328,7 +328,7 @@ def test_eval_mmeb_cli(tmp_path):
 
 
 def test_combined_pair_dataset(tmp_path):
-    from clip_embeds_tpu.data.mmeb import CombinedPairDataset, pair_batches
+    from clip_embeds.data.mmeb import CombinedPairDataset, pair_batches
 
     img_dir = tmp_path / "img"
     img_dir.mkdir()
@@ -367,7 +367,7 @@ def test_combined_pair_dataset(tmp_path):
 
 
 def test_embedding_scorer():
-    from clip_embeds_tpu.scores.embedding_scorer import EmbeddingScorer
+    from clip_embeds.scores.embedding_scorer import EmbeddingScorer
 
     model, params = tiny_llava()
     scorer = EmbeddingScorer(
@@ -425,7 +425,7 @@ def test_embed_mixed_matches_split_paths():
 
 
 def test_mmeb_train_dataset_and_mixed_batches(tmp_path):
-    from clip_embeds_tpu.data.mmeb import MMEBTrainDataset, mixed_pair_batches
+    from clip_embeds.data.mmeb import MMEBTrainDataset, mixed_pair_batches
 
     # two subsets; one item has a query image, others are text-only
     img_path = os.path.join(tmp_path, "im.png")
@@ -474,7 +474,7 @@ def test_backbone_registry():
     """vlm_dict.py-equivalent name->family->native stack resolution."""
     import pytest as _pytest
 
-    from clip_embeds_tpu.models.backbones import (
+    from clip_embeds.models.backbones import (
         HF_MODEL_TO_VLM_BACKBONE,
         get_backbone,
     )
@@ -503,7 +503,7 @@ def test_vlm2vec_step_on_mesh_matches_single_device():
     negatives through XLA-inserted collectives)."""
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    from clip_embeds_tpu.parallel.sharding_rules import shard_params
+    from clip_embeds.parallel.sharding_rules import shard_params
 
     model, base_params = tiny_llava()
     lora = init_lora(base_params, rank=2, rng=jax.random.PRNGKey(1))
@@ -535,7 +535,7 @@ def test_vlm2vec_step_with_fsdp_trunk_matches_single_device():
     leaf sharded over 'data' (fsdp_param_specs); same loss as unsharded."""
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    from clip_embeds_tpu.parallel.sharding_rules import fsdp_shard_params
+    from clip_embeds.parallel.sharding_rules import fsdp_shard_params
 
     model, base_params = tiny_llava()
     lora = init_lora(base_params, rank=2, rng=jax.random.PRNGKey(1))
@@ -567,7 +567,7 @@ def test_unmaterialized_lora_matches_materialize():
     collection) computes exactly scale*(x@A)@B on top of the base matmul —
     the same function materialize() folds into the kernels, without the
     second full weight tree (the 7B single-chip enabler)."""
-    from clip_embeds_tpu.models.lora import materialize, to_collection
+    from clip_embeds.models.lora import materialize, to_collection
 
     model, base_params = tiny_llava()
     lora = init_lora(base_params, rank=2, rng=jax.random.PRNGKey(5))
@@ -637,8 +637,8 @@ def test_unmaterialized_lora_over_quant_base():
     adapters. init_lora targets the int8 'kernel_q' leaves (canonical
     '/kernel' keys), the train step runs and learns, and materialize() on
     the quantized base is a hard error pointing at this path."""
-    from clip_embeds_tpu.models.lora import materialize
-    from clip_embeds_tpu.models.quant import quantize_llava_trunk
+    from clip_embeds.models.lora import materialize
+    from clip_embeds.models.quant import quantize_llava_trunk
 
     model, base_params = tiny_llava()
     qparams = quantize_llava_trunk(jax.device_get(base_params))
@@ -665,7 +665,7 @@ def test_train_vlm2vec_cli_quant_base(tmp_path):
     """--quant_base trains adapters over a frozen W8A8 trunk through the
     unmaterialized side-path end-to-end; the adapter npz is written and the
     merged-bundle export is (correctly) skipped for the int8 base."""
-    from clip_embeds_tpu.cli.train_vlm2vec import main
+    from clip_embeds.cli.train_vlm2vec import main
 
     out = os.path.join(tmp_path, "run")
     rc = main([
@@ -685,8 +685,8 @@ def test_eval_mmeb_cli_quant_base_round_trip(tmp_path):
     same frozen W8A8 base (merge_lora is impossible on int8 kernels).
     Also pins that the adapters actually change the embeddings vs the
     bare quantized base."""
-    from clip_embeds_tpu.cli.eval_mmeb import main as eval_main
-    from clip_embeds_tpu.cli.train_vlm2vec import main as train_main
+    from clip_embeds.cli.eval_mmeb import main as eval_main
+    from clip_embeds.cli.train_vlm2vec import main as train_main
 
     img_path = os.path.join(tmp_path, "im.png")
     Image.fromarray(

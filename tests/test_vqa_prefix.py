@@ -2,7 +2,7 @@
 
 The reference broadcasts m x n by re-running the full VLM forward per
 (image, text) pair (t2v_metrics score.py:43-57, llava_model.py:289-370). The
-TPU redesign prefills the shared image+question prefix once per image
+redesign prefills the shared image+question prefix once per image
 (models/llava.py Llava.prefill) and replays its KV across the n candidate
 suffixes (Llava.suffix_logits). These tests pin the redesign to the pair
 path bit-for-bit (same fp32 reference attention, same reductions) and cover
@@ -15,9 +15,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from clip_embeds_tpu.core.config import VisionConfig
-from clip_embeds_tpu.models.llama import LlamaConfig
-from clip_embeds_tpu.models.llava import (
+from clip_embeds.core.config import VisionConfig
+from clip_embeds.models.llama import LlamaConfig
+from clip_embeds.models.llava import (
     IMAGE_TOKEN_INDEX,
     Llava,
     LlavaConfig,
@@ -56,7 +56,7 @@ def tiny_llava():
 
 
 def _scorer(model, params, **kw):
-    from clip_embeds_tpu.scores.vqa_score import VQAScorer
+    from clip_embeds.scores.vqa_score import VQAScorer
 
     kw.setdefault("batch_size", 2)
     kw.setdefault("pad_to_multiple", 8)
@@ -104,7 +104,7 @@ def test_single_text_falls_back(tiny_llava):
 
 
 def test_score_api_uses_grouped_path(tiny_llava):
-    from clip_embeds_tpu.scores.score import VQAScore
+    from clip_embeds.scores.score import VQAScore
 
     model, params = tiny_llava
     score = VQAScore(model, params, toy_tokenize, bos_token_id=1,
@@ -124,8 +124,8 @@ def test_score_api_uses_grouped_path(tiny_llava):
 def test_grouped_path_chunks_at_group_size(tiny_llava):
     """m > group_size splits into full groups + a remainder group, and the
     chunked result equals the pair path (exercises the k-group boundary the
-    defaults hide: group_size=8 caps prefix-KV HBM at the measured-safe k)."""
-    from clip_embeds_tpu.scores.score import VQAScore
+    defaults hide: group_size=8 caps the prefix-KV memory)."""
+    from clip_embeds.scores.score import VQAScore
 
     model, params = tiny_llava
     score = VQAScore(model, params, toy_tokenize, bos_token_id=1,
@@ -155,7 +155,7 @@ def test_grouped_path_chunks_at_group_size(tiny_llava):
 
 
 def test_batch_forward_uses_grouped_path(tiny_llava):
-    from clip_embeds_tpu.scores.score import VQAScore
+    from clip_embeds.scores.score import VQAScore
 
     model, params = tiny_llava
     score = VQAScore(model, params, toy_tokenize, bos_token_id=1,
@@ -223,7 +223,7 @@ def test_prefill_suffix_logits_match_full_forward(tiny_llava):
 
 
 def test_int8_trunk_scores_close(tiny_llava):
-    from clip_embeds_tpu.models.quant import quantize_llava_trunk
+    from clip_embeds.models.quant import quantize_llava_trunk
 
     model, params = tiny_llava
     qmodel = Llava(tiny_cfg(), attn_impl="reference", quant_llm="dynamic")
@@ -241,9 +241,9 @@ def test_int8_trunk_scores_close(tiny_llava):
 
 
 def test_int8_trunk_embed_last_token(tiny_llava):
-    """VLM2Vec embedding mode over the W8A8 trunk (serving the MMEB eval
-    with a quantized 7B is the memory-fit story on one v5e chip)."""
-    from clip_embeds_tpu.models.quant import quantize_llava_trunk
+    """VLM2Vec embedding mode over the W8A8 trunk (the MMEB eval served
+    with a quantized 7B)."""
+    from clip_embeds.models.quant import quantize_llava_trunk
 
     model, params = tiny_llava
     qmodel = Llava(tiny_cfg(), attn_impl="reference", quant_llm="dynamic")
@@ -270,7 +270,7 @@ def test_prefix_kv_gqa_exactness():
     the prefix KV is cached PRE-GQA-repeat and repeated after concat —
     suffix logits must equal the full causal forward (llava-llama-3 /
     Qwen2-family trunks are GQA)."""
-    from clip_embeds_tpu.models.llama import LlamaConfig, LlamaForCausalLM
+    from clip_embeds.models.llama import LlamaConfig, LlamaForCausalLM
 
     cfg = LlamaConfig(
         vocab_size=128, hidden_size=64, intermediate_size=96,
@@ -324,7 +324,7 @@ def test_scan_llm_matches_unrolled(tiny_llava):
     """scan_llm=True (lax.scan trunk, stacked params): logits and the full
     KV-reuse scorer path match the unrolled trunk. The scan layout exists
     for compile time — one layer body instead of a 32x-unrolled HLO at 7B."""
-    from clip_embeds_tpu.models.llava import stack_llava_params
+    from clip_embeds.models.llava import stack_llava_params
 
     model, params = tiny_llava
     smodel = Llava(tiny_cfg(), attn_impl="reference", scan_llm=True)
@@ -348,8 +348,8 @@ def test_scan_llm_matches_unrolled(tiny_llava):
 
 def test_scan_llm_int8_trunk(tiny_llava):
     """scan + W8A8 trunk compose (stacked QuantDense params)."""
-    from clip_embeds_tpu.models.llava import stack_llava_params
-    from clip_embeds_tpu.models.quant import quantize_llava_trunk
+    from clip_embeds.models.llava import stack_llava_params
+    from clip_embeds.models.quant import quantize_llava_trunk
 
     model, params = tiny_llava
     qs_params = stack_llava_params(
@@ -474,7 +474,7 @@ def test_forward_groups_fallback_single_text(tiny_llava):
 
 
 def test_batch_forward_uses_groups_path(tiny_llava):
-    from clip_embeds_tpu.scores.score import VQAScore
+    from clip_embeds.scores.score import VQAScore
 
     model, params = tiny_llava
     score = VQAScore(model, params, toy_tokenize, bos_token_id=1,
@@ -499,7 +499,7 @@ def test_call_m_by_n_uses_groups_path(tiny_llava):
     """Score(images[m], texts[n]) routes the m x n broadcast through
     forward_groups (every image scores the same n texts = one k-group) and
     matches the reference-shaped pair loop."""
-    from clip_embeds_tpu.scores.score import VQAScore
+    from clip_embeds.scores.score import VQAScore
 
     model, params = tiny_llava
     score = VQAScore(model, params, toy_tokenize, bos_token_id=1,

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from clip_embeds_tpu.data.wds import (
+from clip_embeds.data.wds import (
     ShardedTarDataset,
     decode_image_text,
     decode_raw_image_text,

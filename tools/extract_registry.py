@@ -3,7 +3,7 @@
 Reads the reference fork's ``model_configs/*.json`` (126 files) and
 ``pretrained.py`` (~158 (arch, tag) entries — reference
 open_clip/src/open_clip/pretrained.py:93-660) and emits one JSON data file,
-``clip_embeds_tpu/core/reference_registry.json``, that the TPU factory loads.
+``clip_embeds/core/reference_registry.json``, that the JAX factory loads.
 
 This extracts *configuration data only* (tower shapes, checkpoint URLs/HF-hub
 ids, preprocess statistics). The reference tables are built by `_pcfg`-style
@@ -25,7 +25,7 @@ import sys
 REF = "/root/reference/open_clip/src/open_clip"
 OUT = os.path.join(
     os.path.dirname(__file__), "..",
-    "clip_embeds_tpu", "core", "reference_registry.json",
+    "clip_embeds", "core", "reference_registry.json",
 )
 
 OPENAI_MEAN = (0.48145466, 0.4578275, 0.40821073)

@@ -4,7 +4,7 @@ Source: reference open_clip/src/open_clip/zero_shot_metadata.py (the public
 OpenAI CLIP prompt/classname lists). Templates are `lambda c: f"..."`
 expressions there; we AST-convert each f-string into a plain "{c}" format
 string so the data file carries no code. Output:
-clip_embeds_tpu/evals/zero_shot_metadata.json
+clip_embeds/evals/zero_shot_metadata.json
 
 Run: python tools/extract_zero_shot_metadata.py
 """
@@ -18,7 +18,7 @@ import os
 REF = "/root/reference/open_clip/src/open_clip/zero_shot_metadata.py"
 OUT = os.path.join(
     os.path.dirname(__file__), "..",
-    "clip_embeds_tpu", "evals", "zero_shot_metadata.json",
+    "clip_embeds", "evals", "zero_shot_metadata.json",
 )
 
 
